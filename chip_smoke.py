@@ -1,0 +1,690 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # all phases, needs one CUDA device
+
+Builds the CUDA kernels from `src/repro_torch/kernels/csrc/`, holds each
+against its plain PyTorch version on the card at the serving path's
+full-width shapes, serves llama3-1b (16 layers, seeded random weights)
+through `repro_torch.launch.serve` with true-integer W4A4 arithmetic and an
+int4 KV page pool, and checks the kernels' logits against the plain
+versions' on the same state. Phases print one JSON line each:
+
+    device   card name and power limit (nvidia-smi)
+    build    seconds nvcc took
+    kernels  per kernel: error against the plain version, times, bound
+    serve    the launcher at full width and depth, then two short runs
+    parity   one prefill chunk and one decode step, kernels vs plain
+    profile  (only with --profile) where a decode step's time goes
+
+then the card's `name, power.limit`, then one `{"kernels": [...]}` object
+with the per-kernel record of this run, then as the last line
+`{"ok": true, "device": {...}}`. Any failing phase ends the run with a
+non-zero exit code; without a CUDA device it exits at once.
+
+Bounds use the published peaks of one H100 SXM: 3.35 TB/s of device memory,
+1979 TOP/s int8, 67 TFLOP/s float32 outside the tensor cores.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+          file=sys.stderr)
+    sys.exit(1)
+
+import numpy as np  # noqa: E402
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import hadamard_quant as HQ  # noqa: E402
+from repro_torch.kernels import int4_matmul as I4  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import paged_attention as PA  # noqa: E402
+
+DEV = torch.device("cuda", 0)
+PEAK_BYTES_S = 3.35e12
+PEAK_INT8_OPS_S = 1979e12
+PEAK_F32_FLOPS_S = 67e12
+L2_BYTES = 50 * 2 ** 20
+
+KERNEL_META = {
+    "hadamard_quant": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hadamard_quant.cu",
+        "replaces": "src/repro/kernels/hadamard_quant.py:51"},
+    "int4_matmul": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int4_matmul.cu",
+        "replaces": "src/repro/kernels/int4_matmul.py:97"},
+    "paged_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:360"},
+    "combine_partials": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:352"},
+}
+
+
+def emit(phase: str, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def time_ms(fns, iters: int, warmup: int = 3) -> float:
+    """Mean milliseconds per call by CUDA events; `fns` is a list of
+    equivalent closures over distinct buffers, taken in turn so that a call
+    finds its large operands cold in L2 as the serving path does."""
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fns, reps: int = 20) -> float:
+    """Mean milliseconds of device time per call: the calls are captured
+    once into a CUDA graph and the graph is replayed, so the host's launch
+    path (Python, allocation, the ctypes call) is outside the measurement.
+    `time_ms` on the same closures gives the eager call time."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for f in fns:
+            f()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(fns))
+
+
+def n_copies(nbytes: int) -> int:
+    """Copies of an operand to rotate through so the set exceeds L2 twice."""
+    return max(1, min(32, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+
+
+def bound(nbytes: float, ops: float, peak_ops: float):
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase: kernels
+# ---------------------------------------------------------------------------
+
+def check_hadamard_quant(rng, m, d, b, dtype):
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32) * 3.0)
+    x[:, :: max(1, d // 16)] *= 12.0          # a few outlier channels
+    x = x.to(DEV).to(dtype)
+    codes, s, z = HQ.hadamard_quant(x, b, bits=4)
+    torch.cuda.synchronize()
+    pc, ps, pz = HQ.hadamard_quant_plain(x, b, 4)
+    s_err = float(((s - ps).abs() / ps.abs()).max())
+    z_err = float((z - pz).abs().max())
+    diff = (codes.to(torch.int32) - pc.to(torch.int32)).abs()
+    mism = float((diff != 0).float().mean())
+    deq = s * (codes.float() + z)
+    pdeq = ps * (pc.float() + pz)
+    err = float((deq - pdeq).abs().max())
+    # Pass rule: scale to 1e-6 relative; zero equal (or off by one where
+    # min/s sits on a rounding tie); codes equal except at rounding ties,
+    # which the butterfly's different summation order can flip: at most
+    # 0.1 % of entries, never by more than one step.
+    ok = (s_err <= 1e-6 and z_err <= 1.0 and mism <= 1e-3
+          and int(diff.max()) <= 1 + int(z_err))
+    xs = [x.clone() for _ in range(n_copies(x.numel() * x.element_size()))]
+    fns = [lambda t=t: HQ.hadamard_quant(t, b, bits=4) for t in xs]
+    ms, call_ms = device_ms(fns), time_ms(fns, 50)
+    plain = time_ms([lambda t=t: HQ.hadamard_quant_plain(t, b, 4) for t in xs], 10)
+    nbytes = m * d * x.element_size() + m * d + 8 * m
+    ops = m * d * (math.log2(b) if b > 1 else 0) + 4 * m * d
+    bms, by = bound(nbytes, ops, PEAK_F32_FLOPS_S)
+    return {"shape": f"x[{m},{d}] {str(dtype).split('.')[-1]} b={b} bits=4",
+            "ok": ok, "scale_rel_err": s_err, "zero_abs_err": z_err,
+            "code_mismatch_share": mism, "max_abs_err": err,
+            "tolerance": "scale 1e-6 rel; codes differ at <= 0.1% of "
+                         "entries (rounding ties), by one step",
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": None}
+
+
+def check_int4_matmul(rng, m, k, n):
+    qa = torch.from_numpy(rng.integers(0, 16, (m, k)).astype(np.int8)).to(DEV)
+    wc = torch.from_numpy(rng.integers(-7, 8, (k, n)).astype(np.int8)).to(DEV)
+    wp = I4.int4_pack(wc)
+    sa = torch.from_numpy(rng.uniform(0.01, 0.2, (m, 1)).astype(np.float32)).to(DEV)
+    za = torch.from_numpy(np.round(rng.uniform(-12, 0, (m, 1))).astype(np.float32)).to(DEV)
+    sw = torch.from_numpy(rng.uniform(0.001, 0.02, (n,)).astype(np.float32)).to(DEV)
+    cs = I4.int4_colsum(wp)
+    one = torch.ones_like(sa)
+    # integer part: unit scales and zero offset leave float(acc), exact
+    # below 2^24
+    acc = I4.int4_matmul(qa, one, torch.zeros_like(za), wp, torch.ones_like(sw), cs)
+    out = I4.int4_matmul(qa, sa, za, wp, sw, cs)
+    torch.cuda.synchronize()
+    want_acc = (qa.double() @ wc.double())
+    int_exact = bool(torch.equal(acc.double(), want_acc))
+    plain = I4.int4_matmul_plain(qa, sa, za, wp, sw, cs)
+    denom = plain.abs().clamp_min(1e-30)
+    rel = float(((out - plain).abs() / denom).max())
+    err = float((out - plain).abs().max())
+    ok = int_exact and rel <= 1e-6
+    wps = [wp.clone() for _ in range(n_copies(wp.numel()))]
+    fns = [lambda w=w: I4.int4_matmul(qa, sa, za, w, sw, cs) for w in wps]
+    ms, call_ms = device_ms(fns), time_ms(fns, 60)
+    pms = time_ms([lambda w=w: I4.int4_matmul_plain(qa, sa, za, w, sw, cs)
+                   for w in wps], 10)
+    # yardstick: one library int8 GEMM on the unpacked weights (integer part
+    # only). It needs M > 16, so fewer rows are zero-padded to 32 and the
+    # record says so; it takes K and N in multiples of 8 only, so the ragged
+    # case reports none.
+    lib, lib_note = None, None
+    if k % 8 == 0 and n % 8 == 0:
+        qa_lib, lib_note = qa, "torch._int_mm on unpacked int8 weights"
+        if m <= 16:
+            qa_lib = torch.zeros((32, k), dtype=torch.int8, device=DEV)
+            qa_lib[:m] = qa
+            lib_note += f", q_a zero-padded from {m} to 32 rows"
+        w8s = [wc.clone() for _ in range(n_copies(wc.numel()))]
+        if not torch.equal(torch._int_mm(qa_lib, wc)[:m].double(), want_acc):
+            fail("torch._int_mm disagrees with the exact integer product")
+        lib = device_ms([lambda w=w: torch._int_mm(qa_lib, w) for w in w8s])
+    nbytes = m * k + k * n // 2 + 8 * m + 8 * n + 4 * m * n
+    bms, by = bound(nbytes, 2.0 * m * k * n, PEAK_INT8_OPS_S)
+    return {"shape": f"q_a[{m},{k}] w[{k // 2},{n}]", "ok": ok,
+            "integer_part_exact": int_exact, "max_rel_err": rel,
+            "max_abs_err": err,
+            "tolerance": "integer accumulator exact; output 1e-6 relative",
+            "ms": ms, "call_ms": call_ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib, "library": lib_note}
+
+
+def make_pool(rng, n_layers, n_pages, t, kh, dh, fmt):
+    """A seeded page pool stack [n_layers, n_pages, T, KH, Dh] in one of the
+    three page formats, as a kv dict."""
+    shp = (n_layers, n_pages, t, kh, dh)
+    if fmt == "bf16":
+        return {"k": torch.from_numpy(rng.standard_normal(shp).astype(np.float32)).to(DEV).to(torch.bfloat16),
+                "v": torch.from_numpy(rng.standard_normal(shp).astype(np.float32)).to(DEV).to(torch.bfloat16)}
+    bits = 8 if fmt == "int8" else 4
+    off = 2 ** (bits - 1)
+    kv = {}
+    for nm in ("k", "v"):
+        kv[nm] = torch.from_numpy(
+            (rng.integers(0, 2 ** bits, shp) - off).astype(np.int8)).to(DEV)
+        kv[nm + "_scale"] = torch.from_numpy(rng.uniform(
+            0.01, 0.3 if bits == 4 else 0.02, shp[:-1] + (1,)).astype(np.float32)).to(DEV)
+        kv[nm + "_zero"] = torch.from_numpy(np.round(rng.uniform(
+            -(2 ** bits), 0, shp[:-1] + (1,))).astype(np.float32)).to(DEV)
+    return kv
+
+
+def check_attention(rng, label, fmt, b, s, lens, n_cols, theta):
+    h, kh, dh, t, n_layers = 32, 8, 64, 16, 16
+    n_pages = 1 + b * n_cols
+    pool = make_pool(rng, n_layers, n_pages, t, kh, dh, fmt)
+    bits = {"bf16": None, "int8": 8, "int4": 4}[fmt]
+    q = torch.from_numpy(rng.standard_normal((b, s, h, dh)).astype(np.float32)).to(DEV)
+    q = q.to(torch.bfloat16)
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((b, n_cols), np.int32)
+    for i, ln in enumerate(lens):
+        used = -(-ln // t)
+        bt[i, :used] = perm[i * n_cols:i * n_cols + used]
+    bt = torch.from_numpy(bt).to(DEV)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    if s == 1:
+        qpos = torch.tensor([[max(ln - 1, 0)] for ln in lens], dtype=torch.int32, device=DEV)
+    else:
+        qpos = torch.stack([torch.arange(ln - s, ln, dtype=torch.int32)
+                            for ln in lens]).to(DEV)
+    kw = dict(rope_theta=theta if bits else None, kv_bits=bits,
+              kv_group=dh if bits else None)
+    layer = lambda l: {k_: v_[l] for k_, v_ in pool.items()}  # noqa: E731
+    before = dict(PA.LAUNCHES)
+    out = PA.paged_attention(q, layer(0), bt, qpos, lens_t, **kw)
+    torch.cuda.synchronize()
+    used_combine = PA.LAUNCHES["combine_partials"] > before["combine_partials"]
+    want = PA.paged_attention_plain(q, layer(0), bt, qpos, lens_t, **kw)
+    err = float((out - want).abs().max())
+    zero_rows_ok = all(bool((out[i] == 0).all()) for i, ln in enumerate(lens) if ln == 0)
+    finite = bool(torch.isfinite(out).all())
+    # Pass rule: 2e-5 absolute in f32 - the kernel sums the head dimension
+    # and the page rows in another order than the plain einsum and uses
+    # fused multiply-adds; both are f32 throughout.
+    ok = err <= 2e-5 and zero_rows_ok and finite
+    fns = [lambda l=l: PA.paged_attention(q, layer(l), bt, qpos, lens_t, **kw)
+           for l in range(n_layers)]
+    ms, call_ms = device_ms(fns), time_ms(fns, 48)
+    pms = time_ms([lambda l=l: PA.paged_attention_plain(q, layer(l), bt, qpos, lens_t, **kw)
+                   for l in range(2)], 4, warmup=1)
+    lib = None
+    if fmt == "bf16":
+        # yardstick: SDPA on a slab gathered beforehand (the gather is not timed)
+        kk = pool["k"][0][bt.long()].reshape(b, n_cols * t, kh, dh)
+        vv = pool["v"][0][bt.long()].reshape(b, n_cols * t, kh, dh)
+        kk = kk.repeat_interleave(h // kh, dim=2).transpose(1, 2)
+        vv = vv.repeat_interleave(h // kh, dim=2).transpose(1, 2)
+        qq = q.transpose(1, 2)
+        mask = (torch.arange(n_cols * t, device=DEV)[None, None, None, :]
+                <= qpos[:, None, :, None])
+        lib = device_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask)])
+    # Bound: the rows the causal walk needs are the first `len` of each
+    # sequence (the rest of the last page is masked, never needed), each with
+    # its K and V and, for integer pages, their scale and zero; a query at
+    # position p multiplies and accumulates against keys 0..p only.
+    per_row = kh * dh * pool["k"].element_size() * 2
+    if bits:
+        per_row += kh * 4 * 4
+    nbytes = sum(lens) * per_row + q.numel() * 2 + out.numel() * 4 + bt.numel() * 4
+    live_pairs = int(torch.minimum(qpos + 1, lens_t[:, None]).clamp_min(0).sum())
+    flops = 4.0 * h * dh * live_pairs
+    bms, by = bound(nbytes, flops, PEAK_F32_FLOPS_S)
+    return {"shape": f"{label}: q[{b},{s},{h},{dh}] bf16, {fmt} pages T={t}, "
+                     f"lens={lens}, table {n_cols} cols",
+            "ok": ok, "max_abs_err": err, "used_combine": used_combine,
+            "tolerance": "2e-5 absolute (f32, different summation order)",
+            "ms": ms, "call_ms": call_ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib,
+            "library": ("scaled_dot_product_attention on a slab gathered "
+                        "beforehand" if lib is not None else None)}
+
+
+def check_combine(rng, b, ks, h, s, dh):
+    m = torch.from_numpy(rng.standard_normal((b, ks, h, s)).astype(np.float32) * 4).to(DEV)
+    l = torch.from_numpy(rng.uniform(0.5, 16, (b, ks, h, s)).astype(np.float32)).to(DEV)
+    acc = torch.from_numpy(rng.standard_normal((b, ks, h, s, dh)).astype(np.float32)).to(DEV)
+    m[:, ks // 2:] = -math.inf                  # dead splits
+    l[:, ks // 2:] = 0
+    acc[:, ks // 2:] = 0
+    m[b - 1] = -math.inf                        # a row with no live page
+    l[b - 1] = 0
+    acc[b - 1] = 0
+    out = PA.combine_partials(m, l, acc)
+    torch.cuda.synchronize()
+    want = PA.combine_partials_plain(m, l, acc)
+    err = float((out - want).abs().max())
+    ok = err <= 2e-5 and bool((out[b - 1] == 0).all()) and bool(torch.isfinite(out).all())
+    fns = [lambda: PA.combine_partials(m, l, acc)]
+    ms, call_ms = device_ms(fns), time_ms(fns, 100)
+    pms = time_ms([lambda: PA.combine_partials_plain(m, l, acc)], 20)
+    nbytes = (m.numel() + l.numel() + acc.numel() + out.numel()) * 4
+    bms, by = bound(nbytes, 3.0 * acc.numel(), PEAK_F32_FLOPS_S)
+    return {"shape": f"m,l[{b},{ks},{h},{s}] acc[...,{dh}]", "ok": ok,
+            "max_abs_err": err,
+            "tolerance": "2e-5 absolute (f32)", "ms": ms, "call_ms": call_ms,
+            "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def phase_kernels():
+    rng = np.random.default_rng(0)
+    cases = {"hadamard_quant": [], "int4_matmul": [], "paged_attention": [],
+             "combine_partials": []}
+    for m in (4, 32):
+        for d, b, dt in ((2048, 1, torch.bfloat16), (8192, 16, torch.bfloat16),
+                         (8192, 32, torch.bfloat16), (8192, 16, torch.float32),
+                         (8192, 1, torch.float32)):
+            cases["hadamard_quant"].append(check_hadamard_quant(rng, m, d, b, dt))
+    cases["hadamard_quant"].append(
+        check_hadamard_quant(rng, 4, 3072, 12, torch.float32))   # Paley order
+    for m in (4, 32):
+        for k, n in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)):
+            cases["int4_matmul"].append(check_int4_matmul(rng, m, k, n))
+    cases["int4_matmul"].append(check_int4_matmul(rng, 5, 250, 514))  # ragged
+    theta = 500000.0
+    for fmt in ("int4", "int8", "bf16"):
+        cases["paged_attention"].append(check_attention(
+            rng, "decode", fmt, 4, 1, [120, 0, 37, 113], 8, theta))
+    for fmt in ("int4", "int8", "bf16"):
+        cases["paged_attention"].append(check_attention(
+            rng, "prefill", fmt, 1, 32, [128], 8, theta))
+    cases["combine_partials"].append(check_combine(rng, 4, 2, 32, 1, 64))
+    cases["combine_partials"].append(check_combine(rng, 4, 8, 32, 1, 64))
+    if not cases["paged_attention"][0]["used_combine"]:
+        fail("the decode attention case did not take the split path")
+    bad = [(k, c["shape"]) for k, cs in cases.items() for c in cs if not c["ok"]]
+    emit("kernels", ok=not bad, cases=cases)
+    if bad:
+        fail(f"kernel disagrees with its plain version: {bad}")
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase: serve
+# ---------------------------------------------------------------------------
+
+SERVE_ARGS = ["--arch", "llama3-1b", "--integer-path", "--block-size", "16",
+              "--admission", "reserve", "--slots", "4", "--page-size", "16",
+              "--prefill-chunk", "32", "--max-len", "512", "--device", "cuda"]
+
+
+def run_launcher(label, extra):
+    """One launcher run with every count set to 0 just before and read just
+    after; returns (the launcher's result, record)."""
+    from repro_torch.launch import serve as serve_cli
+    buf = io.StringIO()
+    kops.reset_kernel_launch_counts()
+    kops.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = serve_cli.main(SERVE_ARGS + extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kops.kernel_launch_counts()
+    plain = {f"{e}": n for (e, path), n in kops.dispatch_counts().items()
+             if path == "plain"}
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if "served" in ln or ln.startswith("summary:")]
+    done, engine, snap = result["done"], result["engine"], result["snapshot"]
+    alloc = engine.kv.allocator
+    steps = snap["counters"]["engine.steps"]
+    step_s = snap["histograms"]["engine.step.wall_s"]["sum"]
+    toks = snap["counters"]["engine.generated_tokens"]
+    rec = {
+        "label": label, "args": extra, "requests": len(done),
+        "outcomes": sorted({r.outcome for r in done}),
+        "prompt_tokens": [len(r.prompt) for r in sorted(done, key=lambda r: r.rid)],
+        "engine_steps": steps, "generated_tokens": toks,
+        "tokens_per_s": toks / max(step_s, 1e-9),
+        "ms_per_engine_step": 1e3 * step_s / max(steps, 1),
+        "wall_s_with_setup": wall, "kernel_launches": launches,
+        "plain_dispatches": plain, "pages_in_use_at_end": alloc.in_use,
+        "launcher_lines": lines,
+        "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    problems = []
+    if len(done) != int(extra[extra.index("--requests") + 1]):
+        problems.append("not every request came back")
+    if rec["outcomes"] != ["length"]:
+        problems.append(f"outcomes {rec['outcomes']} (a non-finite logit "
+                        "row ends as 'failed')")
+    if alloc.in_use != 0 or alloc.n_free != alloc.capacity or engine.kv.tables:
+        problems.append("pages left in use")
+    engine.check_books()
+    for name, n in launches.items():
+        if n <= 0:
+            problems.append(f"kernel {name} was never launched")
+    if plain:
+        problems.append(f"plain versions ran on the main path: {plain}")
+    for r in done:
+        if len(r.generated) != r.sampling.max_new or \
+                not all(0 <= t < engine.adapter.cfg.vocab for t in r.generated):
+            problems.append(f"request {r.rid}: bad token stream")
+    rec["ok"] = not problems
+    rec["problems"] = problems
+    return result, rec
+
+
+def phase_serve():
+    torch.cuda.reset_peak_memory_stats()
+    result, full = run_launcher("llama3-1b, 16 layers, int4 KV pages", [
+        "--kv-bits", "4", "--requests", "8", "--max-new", "16",
+        "--prompt-len", "40-160"])
+    runs = [full]
+    adapter = result["engine"].adapter
+    del result
+    for label, extra in (
+            ("llama3-1b widths, 2 layers, int8 KV pages",
+             ["--kv-bits", "8", "--layers", "2"]),
+            ("llama3-1b widths, 2 layers, bf16 KV pages", ["--layers", "2"])):
+        _, rec = run_launcher(label, extra + [
+            "--requests", "4", "--max-new", "8", "--prompt-len", "70-100"])
+        runs.append(rec)
+    emit("serve", ok=all(r["ok"] for r in runs), runs=runs)
+    bad = [(r["label"], r["problems"]) for r in runs if not r["ok"]]
+    if bad:
+        fail(f"serve phase: {bad}")
+    return full, adapter
+
+
+# ---------------------------------------------------------------------------
+# phase: parity
+# ---------------------------------------------------------------------------
+
+# Kernels and plain versions run the same f32 arithmetic in other summation
+# orders. Each kernel is held to its plain version within 2e-5 in the
+# `kernels` phase, and on this seeded state the whole model's logits have
+# come out equal bit for bit, so the bound on the logits is 0.1 % of
+# max|logit|: a kernel that is off in the second decimal fails here. The
+# greedy token must be the same on every row whose top-2 gap exceeds twice
+# that bound, and a step where no row is so decided fails the phase.
+PARITY_FRAC = 1e-3
+
+
+def phase_parity(adapter):
+    qlm, params = adapter.qlm, adapter.params
+    cfg = qlm.cfg
+    rng = np.random.default_rng(1)
+    page, n_pages, b = 16, 16, 4
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 97))).to(DEV)
+    table = list(range(1, 8))
+
+    def bt_for(n_cols, rows):
+        t = torch.zeros((rows, n_cols), dtype=torch.int32, device=DEV)
+        t[0, :min(n_cols, len(table))] = torch.tensor(
+            table[:n_cols], dtype=torch.int32, device=DEV)
+        return t
+
+    def compare(tag, got, want):
+        got, want = got.float(), want.float()
+        top = float(want.abs().max())
+        err = float((got - want).abs().max())
+        srt = want.sort(dim=-1).values
+        gap = srt[..., -1] - srt[..., -2]
+        decided = gap > 2 * PARITY_FRAC * top
+        same = got.argmax(-1) == want.argmax(-1)
+        ok = (err <= PARITY_FRAC * top and bool(decided.any())
+              and bool(same[decided].all())
+              and bool(torch.isfinite(got).all()))
+        return {"step": tag, "ok": ok, "max_abs_err": err, "max_abs_logit": top,
+                "bound": PARITY_FRAC * top,
+                "rows_with_decided_argmax": int(decided.sum()),
+                "rows": int(decided.numel()),
+                "greedy_equal_all_rows": bool(same.all())}
+
+    pool_k = qlm.init_cache(n_pages, page, device=DEV)
+    pool_p = {k: v.clone() for k, v in pool_k.items()}
+    lens = torch.tensor([32], dtype=torch.int32, device=DEV)
+    out = []
+    lk, _ = qlm.forward_chunk(params, toks[:, :32], pool_k, 0, bt_for(2, 1), lens)
+    with kops.use_kernels(False):
+        lp, _ = qlm.forward_chunk(params, toks[:, :32], pool_p, 0, bt_for(2, 1), lens)
+    out.append(compare("prefill chunk [1, 32] at position 0", lk[0], lp[0]))
+    for start in (32, 64):      # fill 96 positions, kernels only
+        n_cols = 1
+        while n_cols * page < start + 32:
+            n_cols *= 2
+        qlm.forward_chunk(
+            params, toks[:, start:start + 32], pool_k, start, bt_for(n_cols, 1),
+            torch.tensor([start + 32], dtype=torch.int32, device=DEV))
+    for k_ in pool_k:
+        pool_p[k_].copy_(pool_k[k_])            # the same state for both
+    nxt = torch.zeros((b, 1), dtype=torch.int64, device=DEV)
+    nxt[0, 0] = toks[0, 96]
+    fill = torch.tensor([96, 0, 0, 0], dtype=torch.int32, device=DEV)
+    dl = torch.tensor([97, 0, 0, 0], dtype=torch.int32, device=DEV)
+    before = kops.kernel_launch_counts()["combine_partials"]
+    lk, _ = qlm.forward_chunk(params, nxt, pool_k, fill, bt_for(8, b), dl)
+    took_split = kops.kernel_launch_counts()["combine_partials"] > before
+    with kops.use_kernels(False):
+        lp, _ = qlm.forward_chunk(params, nxt, pool_p, fill, bt_for(8, b), dl)
+    torch.cuda.synchronize()
+    out.append(compare("decode step [4, 1], row 0 at position 96, rows 1-3 "
+                       "of length 0", lk[:, 0], lp[:, 0]))
+    ok = all(c["ok"] for c in out) and took_split
+    emit("parity", ok=ok, layers=cfg.n_layers, kv_bits=qlm.kv_bits,
+         decode_took_split_path=took_split, steps=out,
+         tolerance=f"{PARITY_FRAC} of max|logit|, greedy tokens equal where "
+                   "the top-2 gap is over twice that (see source)")
+    if not ok:
+        fail(f"parity phase: {out}, split path {took_split}")
+
+
+# ---------------------------------------------------------------------------
+# phase: profile (optional)
+# ---------------------------------------------------------------------------
+
+def phase_profile(adapter):
+    """Where a pure decode step's time goes: 4 sequences of ~100 cached
+    tokens, host wall per step, then the same steps under torch.profiler for
+    the device-busy time and the kernels by share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import (EngineRequest, SamplingParams,
+                                          ServeEngine)
+    engine = ServeEngine(adapter, n_pages=4 * 16 + 1, page_size=16, max_seqs=4,
+                         prefill_chunk=32)
+    rng = np.random.default_rng(3)
+    for rid in range(4):
+        engine.submit(EngineRequest(
+            rid=rid, prompt=rng.integers(0, adapter.cfg.vocab, 100).tolist(),
+            sampling=SamplingParams(max_new=48)))
+    while engine.queue or engine.prefilling:
+        engine.step()
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    for _ in range(n):
+        engine.step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    kops.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            engine.step()
+        torch.cuda.synchronize()
+    prof_wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    launches = kops.kernel_launch_counts()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages() if dev_us(e) > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3 / n
+    n_dev = sum(r[2] for r in rows) / n
+    emit("profile", decode_rows=len(engine.decoding), steps=n,
+         ms_per_decode_step=wall_ms, ms_per_decode_step_profiled=prof_wall_ms,
+         device_busy_ms_per_step=busy_ms,
+         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+         device_kernels_per_step=n_dev,
+         hand_written_launches_per_step={k: v / n for k, v in launches.items()},
+         top_device_kernels=[{"name": k[:90], "ms_per_step": us / 1e3 / n,
+                              "calls_per_step": c / n} for k, us, c in rows[:14]])
+
+
+# ---------------------------------------------------------------------------
+
+# the case of each kernel that the closing record reports: the shape a
+# decode step of the served model gives it
+REPORTED = {
+    "hadamard_quant": "x[4,8192] bfloat16 b=16 bits=4",
+    "int4_matmul": "q_a[4,2048] w[1024,8192]",
+    "paged_attention": "decode: q[4,1,32,64] bf16, int4 pages",
+    "combine_partials": "m,l[4,2,32,1]",
+}
+
+
+def kernel_record(cases, launches):
+    rows = []
+    for name, meta in KERNEL_META.items():
+        case = next(c for c in cases[name] if c["shape"].startswith(REPORTED[name]))
+        rows.append({"name": name, **meta, "launches": launches[name],
+                     "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+                     "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                     "bound_by": case["bound_by"],
+                     "library_ms": case["library_ms"],
+                     "library": case.get("library"), "shape": case["shape"],
+                     "call_ms": case["call_ms"]})
+    return {"kernels": rows}
+
+
+def phase_device():
+    line = nvidia_smi_line()
+    emit("device", nvidia_smi=line, kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+    return line
+
+
+def phase_build(verbose: bool):
+    _build.load(verbose=verbose)
+    info = _build.BUILD_INFO
+    emit("build", seconds=info["seconds"], library=info["library"],
+         sources=[s.name for s in _build.sources()])
+    if verbose:
+        print(info["log"], file=sys.stderr)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also break a decode step down with torch.profiler")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print what ptxas reports per kernel (stderr)")
+    args = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = phase_device()
+    phase_build(args.ptxas)
+    cases = phase_kernels()
+    full, adapter = phase_serve()
+    phase_parity(adapter)
+    if args.profile:
+        phase_profile(adapter)
+    print(smi, flush=True)
+    print(json.dumps(kernel_record(cases, full["kernel_launches"])), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,147 @@
+"""Builds the CUDA sources under `csrc/` into one shared library and loads it.
+
+The kernels have a plain C interface (`extern "C" int <name>_launch(...)`
+returning the `cudaGetLastError()` code), so they compile with `nvcc` alone,
+without PyTorch's headers, in seconds. Each source is compiled to an object
+file by its own `nvcc` process, all started together, then linked into
+
+    <build dir>/libmixquant_kernels_<hash of the sources>.so
+
+and loaded with `ctypes`, every function's `argtypes` set so that pointers
+are passed at full width. The build happens at first use, never at import.
+The build directory is `$REPRO_TORCH_BUILD_DIR` if set, else `build/` at the
+root of the source checkout (beside `src/`), else `build/` in the working
+directory. A missing compiler, a failed compile or a failed load raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# function name -> argtypes (the stream is the last pointer of each)
+SIGNATURES = {
+    "hadamard_quant_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "int4_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "paged_attention_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P] + [_I] * 12 + [_P],
+    "combine_partials_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_LIB = None
+BUILD_INFO = {"seconds": None, "library": None, "log": ""}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    root = Path(__file__).resolve().parents[3]
+    if (root / "src").is_dir():
+        return root / "build" / "repro_torch_kernels"
+    return Path.cwd() / "build" / "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set NVCC or put the CUDA toolkit on PATH)")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile (if this exact set of sources was not built yet) and return
+    the path of the shared library."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    digest = hashlib.sha256()
+    for s in srcs:
+        digest.update(s.name.encode())
+        digest.update(s.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = build_dir()
+    lib = out_dir / f"libmixquant_kernels_{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        BUILD_INFO.update(seconds=0.0, library=str(lib))
+        return lib
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    objs, procs = [], []
+    for s in srcs:
+        obj = out_dir / f"{s.stem}.{os.getpid()}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for s, p in zip(srcs, procs):
+        out, _ = p.communicate()
+        logs.append(f"== {s.name}\n{out}")
+        if p.returncode != 0:
+            failed.append(s.name)
+    BUILD_INFO["log"] = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + BUILD_INFO["log"])
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    os.replace(tmp, lib)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, library=str(lib))
+    return lib
+
+
+def load(verbose: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build(verbose)))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def stream_ptr(device) -> int:
+    """Raw handle of PyTorch's current stream, for a launch on `device`. A
+    kernel launches on the current CUDA device, so a tensor that lies on
+    another card is refused rather than launched in the wrong context."""
+    import torch
+    if device.index is not None and device.index != torch.cuda.current_device():
+        raise RuntimeError(
+            f"tensor on {device} but the current CUDA device is "
+            f"cuda:{torch.cuda.current_device()}; wrap the call in "
+            "`with torch.cuda.device(...)`")
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(code: int, what: str):
+    """Raise on a non-zero CUDA error code returned by a launch function."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error code {code}")

@@ -1,0 +1,258 @@
+"""Serving launcher: pack seeded weights to int4 and serve them through the
+paged-KV continuous-batching engine.
+
+    python -m repro_torch.launch.serve --arch llama3-1b --integer-path \\
+        --kv-bits 4 --block-size 16
+
+Runs on a CUDA device by default (`--device cpu` for a CPU run; with
+`--device cuda` and no card it exits non-zero). So far it serves the
+packed-int4 integer path (`--integer-path`, dense archs, optional
+`--kv-bits {4,8}` integer KV pages) with `--preset rtn_only`: the weights
+are freshly initialised from a seeded generator, given LLM-like outlier
+channels, and rounded to nearest on a per-channel symmetric int4 grid. The
+calibrated presets, the bf16 and fake-quant paths, the prefix cache, the
+swap tier, tracing and probes are not ported yet; asking for one exits with
+a line naming the ROADMAP queue item.
+
+Every run ends with `served N requests...`, one `req i: prompt -> tokens`
+line per request and a one-line `summary:` from the engine's metrics
+registry; `--metrics-json PATH` writes the whole snapshot.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from ..configs.registry import ARCH_IDS, get_config
+from ..core.synthetic import inject_outlier_channels
+from ..kernels import ops as kops
+from ..models import layers as L
+from ..serve.engine import (EngineRequest, SamplingParams, ServeEngine,
+                            as_servable, pages_for)
+from ..serve.quantized import QuantizedDenseLM, pack_dense_params
+
+# the JAX launcher's preset names; only the first needs no calibration
+PRESETS = ("rtn_only", "quarot", "perq_star", "perq_dagger", "mr_rtn",
+           "mr_gptq", "mr_qronos", "brq_spin")
+
+
+def _ms(v) -> str:
+    return "n/a" if v is None else f"{v * 1e3:.1f}ms"
+
+
+def summary_line(snap: dict) -> str:
+    """One-line end-of-run summary from a registry snapshot."""
+    c, g, h = snap["counters"], snap["gauges"], snap["histograms"]
+    toks = c["engine.generated_tokens"]
+    wall = h["engine.step.wall_s"]["sum"]
+    lat = h["engine.decode.token_latency_s"]
+    wait = h["engine.admission.wait_s"]
+    return (f"summary: {toks} tokens in {wall:.2f}s engine time "
+            f"({toks / max(wall, 1e-9):.1f} tok/s) | "
+            f"token latency p50 {_ms(lat['p50'])} p95 {_ms(lat['p95'])} | "
+            f"peak pages {g['engine.pages.peak_in_use']:.0f}"
+            f"/{g['engine.pages.capacity']:.0f} "
+            f"({g['engine.pages.utilization_peak']:.0%} peak util)"
+            f" | fail {c['engine.requests.failed']}"
+            f" | admission wait p95 {_ms(wait['p95'])}")
+
+
+def init_dense_params(cfg, gen: torch.Generator) -> dict:
+    """Freshly initialised dense-LM parameters, layer leaves stacked
+    `[n_layers, ...]`, drawn from `gen` on its device."""
+    dt = L.DTYPES[cfg.param_dtype]
+    dev = gen.device
+    spec = L.AttnSpec(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                      head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                      qkv_bias=cfg.qkv_bias)
+    embed = L._normal(gen, (cfg.vocab, cfg.d_model), 0.02, dt)
+    blocks = [{
+        "attn_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
+        "attn": L.init_attention(gen, cfg.d_model, spec, dt),
+        "ffn_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
+        "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt),
+    } for _ in range(cfg.n_layers)]
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    return {
+        "embed": embed,
+        "layers": stack(blocks),
+        "final_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
+        "lm_head": L._normal(gen, (cfg.d_model, cfg.vocab),
+                             cfg.d_model ** -0.5, dt),
+    }
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
+    ap.add_argument("--arch", "--model", dest="arch",
+                    default="qwen1.5-0.5b", choices=ARCH_IDS)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="cut the model to its first N layers (widths "
+                    "unchanged)")
+    ap.add_argument("--preset", default="rtn_only", choices=PRESETS)
+    ap.add_argument("--block-size", type=int, default=32)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--prompt-len", default="3-8", metavar="LO-HI",
+                    help="prompt lengths are drawn uniformly from [LO, HI]")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="restrict sampling to the k most likely tokens "
+                    "(0 disables)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (1.0 disables)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prefill-chunk", type=int, default=8)
+    ap.add_argument("--integer-path", action="store_true")
+    ap.add_argument("--kv-bits", type=int, default=None, choices=[4, 8])
+    ap.add_argument("--no-quant", action="store_true")
+    ap.add_argument("--legacy-scheduler", action="store_true")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write the engine metrics snapshot as JSON")
+    ap.add_argument("--trace", default=None, metavar="PATH")
+    ap.add_argument("--probe-every", type=int, default=0, metavar="K")
+    ap.add_argument("--admission", default="reserve",
+                    choices=["optimistic", "reserve"],
+                    help="admission policy: reserve commits worst-case "
+                    "pages up front and never preempts")
+    ap.add_argument("--deadline-s", type=float, default=None)
+    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--prefix-cache-pages", type=int, default=None,
+                    metavar="N")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="prepend the same N-token system prompt to every "
+                    "request")
+    ap.add_argument("--swap-host-mb", type=float, default=None, metavar="MB")
+    ap.add_argument("--swap-policy", default="cost",
+                    choices=["never", "cost", "always"])
+    ap.add_argument("--drain-after", type=int, default=None, metavar="N")
+    return ap
+
+
+def _refuse_unported(args):
+    """Exit with one line for every option that is not ported yet."""
+    waits = [
+        (args.no_quant, "--no-quant: the bf16 Model path is ROADMAP Queue A8"),
+        (not args.integer_path and not args.no_quant,
+         "the fake-quant path is ROADMAP Queue A8/A9; pass --integer-path"),
+        (args.legacy_scheduler,
+         "--legacy-scheduler: BatchScheduler is ROADMAP Queue A8"),
+        (args.preset != "rtn_only",
+         f"--preset {args.preset}: PTQ calibration is ROADMAP Queue A9; "
+         "use --preset rtn_only"),
+        (args.prefix_cache or args.prefix_cache_pages is not None,
+         "--prefix-cache: the radix cache is ROADMAP Queue A5"),
+        (args.swap_host_mb is not None,
+         "--swap-host-mb: the host swap tier is ROADMAP Queue A5"),
+        (args.drain_after is not None,
+         "--drain-after: drain is ROADMAP Queue A5"),
+        (args.deadline_s is not None,
+         "--deadline-s: request deadlines are ROADMAP Queue A5"),
+        (args.trace is not None, "--trace: tracing is ROADMAP Queue A6"),
+        (args.probe_every != 0,
+         "--probe-every: quality probes are ROADMAP Queue A6"),
+        (args.admission == "optimistic",
+         "--admission optimistic: preemption and replay are ROADMAP "
+         "Queue A5; use --admission reserve"),
+    ]
+    for cond, msg in waits:
+        if cond:
+            raise SystemExit(f"not ported yet: {msg}")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available "
+                         "(pass --device cpu for a CPU run)")
+    device = torch.device(args.device)
+    try:
+        lo, hi = (int(v) for v in args.prompt_len.split("-"))
+    except ValueError:
+        raise SystemExit(f"--prompt-len wants LO-HI, got {args.prompt_len!r}")
+    if not 1 <= lo <= hi:
+        raise SystemExit("--prompt-len wants 1 <= LO <= HI")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.layers is not None:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, n_layers=args.layers).validate()
+    if cfg.family not in ("dense", "vlm"):
+        raise SystemExit(f"--integer-path packs dense projections only; "
+                         f"{cfg.name} is family {cfg.family!r}")
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = inject_outlier_channels(init_dense_params(cfg, gen))
+    packed = pack_dense_params(params, cfg)
+    del params
+    print(f"packed {cfg.name} with rtn_only (b={args.block_size}) "
+          f"on {device}")
+
+    rng = np.random.default_rng(args.seed)
+    system = rng.integers(0, cfg.vocab, size=args.shared_prefix).tolist()
+    prompts = [system + rng.integers(
+        0, cfg.vocab, size=int(rng.integers(lo, hi + 1))).tolist()
+        for _ in range(args.requests)]
+
+    qlm = QuantizedDenseLM(cfg, block_size=args.block_size,
+                           kv_bits=args.kv_bits)
+    adapter = as_servable(qlm, packed)
+    label = f"integer path (kv_bits={args.kv_bits})"
+
+    # enough pool for every slot to hold its worst-case sequence (the larger
+    # of --max-len and the longest prompt + --max-new, which is what
+    # admission reserves), plus the reserved scratch page
+    per_seq = max([pages_for(args.max_len, args.page_size)]
+                  + [pages_for(len(p) + args.max_new, args.page_size)
+                     for p in prompts])
+    n_pages = args.slots * per_seq + 1
+    engine = ServeEngine(adapter, n_pages=n_pages, page_size=args.page_size,
+                         max_seqs=args.slots,
+                         prefill_chunk=args.prefill_chunk,
+                         admission=args.admission, seed=args.seed,
+                         max_context=max(args.max_len,
+                                         per_seq * args.page_size))
+    for rid, prompt in enumerate(prompts):
+        engine.submit(EngineRequest(
+            rid=rid, prompt=prompt,
+            sampling=SamplingParams(temperature=args.temperature,
+                                    max_new=args.max_new,
+                                    top_k=args.top_k, top_p=args.top_p)))
+    done = engine.run()
+    engine.check_books()
+    print(f"{label}: served {len(done)} requests over {args.slots} slots "
+          f"in {engine.n_steps} engine steps "
+          f"({engine.n_prefill_tokens} prefill + "
+          f"{engine.n_decode_tokens} decode tokens)")
+    for r in sorted(done, key=lambda r: r.rid):
+        mark = "" if r.outcome in ("length", "stop") else f" [{r.outcome}]"
+        print(f"req {r.rid}: {r.prompt} → {r.generated}{mark}")
+
+    snap = engine.metrics_snapshot()
+    print(summary_line(snap))
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(snap, f, indent=1)
+        print(f"metrics snapshot → {args.metrics_json}")
+    return {"done": done, "engine": engine, "snapshot": snap}
+
+
+if __name__ == "__main__":
+    main()

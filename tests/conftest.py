@@ -20,3 +20,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "chaos: fault-injection robustness test (engine "
         "preemption/cancel/deadline invariants under a FaultPlan)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device and nvcc (the PyTorch/CUDA "
+        "port's kernels); skips where there is none")

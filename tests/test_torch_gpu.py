@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+These tests need an NVIDIA GPU and `nvcc`; without a CUDA device each one
+skips. Run them on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+(`python3 chip_smoke.py` runs the same comparisons at the serving path's
+full-width shapes and then serves a model through the kernels.)
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import hadamard_quant as HQ
+from repro_torch.kernels import int4_matmul as I4
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import paged_attention as PA
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU form)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("d,b", [(256, 1), (512, 16), (4096, 64), (384, 12),
+                                 (19200, 64), (19200, 12)])   # > 48 KB rows
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hadamard_quant_kernel(dev, d, b, dtype):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((9, d)).astype(np.float32) * 3)
+    x = x.to(dev).to(dtype)
+    before = HQ.LAUNCHES["hadamard_quant"]
+    codes, s, z = kops.hadamard_quant(x, b)
+    assert HQ.LAUNCHES["hadamard_quant"] == before + 1
+    pc, ps, pz = HQ.hadamard_quant_plain(x, b)
+    torch.testing.assert_close(s, ps, rtol=1e-6, atol=0)
+    diff = (codes.int() - pc.int()).abs()
+    # codes differ only at rounding ties of the two summation orders
+    assert float((diff != 0).float().mean()) <= 1e-3 and int(diff.max()) <= 1
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 8), (4, 2048, 512), (37, 250, 514),
+                                   (130, 512, 1024)])
+def test_int4_matmul_kernel(dev, m, k, n):
+    rng = np.random.default_rng(1)
+    qa = torch.from_numpy(rng.integers(0, 16, (m, k)).astype(np.int8)).to(dev)
+    wc = torch.from_numpy(rng.integers(-8, 8, (k, n)).astype(np.int8)).to(dev)
+    wp = I4.int4_pack(wc)
+    sa = torch.from_numpy(rng.uniform(0.01, 0.2, (m, 1)).astype(np.float32)).to(dev)
+    za = torch.from_numpy(np.round(rng.uniform(-12, 0, (m, 1))).astype(np.float32)).to(dev)
+    sw = torch.from_numpy(rng.uniform(0.001, 0.02, (n,)).astype(np.float32)).to(dev)
+    out = kops.int4_matmul(qa, sa, za, wp, sw)
+    with kops.use_kernels(False):
+        want = kops.int4_matmul(qa, sa, za, wp, sw)
+    # same integers, same three f32 roundings in the same order
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("fmt", ["float", "int8", "int4"])
+@pytest.mark.parametrize("s,lens,n_cols", [(1, [50, 0, 17], 8), (8, [24, 8, 13], 4)])
+@pytest.mark.parametrize("g,dh", [(3, 32), (7, 128)])   # the latter needs > 48 KB
+def test_paged_attention_kernel(dev, fmt, s, lens, n_cols, g, dh):
+    rng = np.random.default_rng(2)
+    b, kh, t = 3, 2, 8
+    n_pages = 1 + b * n_cols
+    shape = (n_pages, t, kh, dh)
+    bits = {"float": None, "int8": 8, "int4": 4}[fmt]
+    if bits is None:
+        kv = {n: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+              for n in ("k", "v")}
+    else:
+        kv = {}
+        for n in ("k", "v"):
+            kv[n] = torch.from_numpy(
+                (rng.integers(0, 2 ** bits, shape) - 2 ** (bits - 1)).astype(np.int8))
+            kv[n + "_scale"] = torch.from_numpy(rng.uniform(
+                0.002, 0.2 / 2 ** (bits - 4), shape[:-1] + (1,)).astype(np.float32))
+            kv[n + "_zero"] = torch.from_numpy(np.round(rng.uniform(
+                -(2 ** bits), 0, shape[:-1] + (1,))).astype(np.float32))
+    kv = {n: a.to(dev) for n, a in kv.items()}
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((b, n_cols), np.int32)
+    for i, ln in enumerate(lens):
+        bt[i, :-(-ln // t)] = perm[i * n_cols:i * n_cols + -(-ln // t)]
+    q = torch.from_numpy(rng.standard_normal((b, s, kh * g, dh)).astype(np.float32)).to(dev)
+    qpos = torch.tensor([list(range(max(ln - s, 0), max(ln - s, 0) + s)) for ln in lens],
+                        dtype=torch.int32, device=dev)
+    args = (q, kv, torch.from_numpy(bt).to(dev), qpos,
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+    kw = dict(rope_theta=10000.0 if bits else None, kv_bits=bits,
+              kv_group=dh if bits else None)
+    out = kops.paged_attention(*args, **kw)
+    with kops.use_kernels(False):
+        want = kops.paged_attention(*args, **kw)
+    # f32 throughout, other summation order and fused multiply-adds
+    torch.testing.assert_close(out, want, rtol=0, atol=2e-5)
+    assert bool((out[1] == 0).all()) if lens[1] == 0 else True
+    assert PA.LAUNCHES["paged_attention"] > 0
+
+
+def test_block_hadamard_raises_on_the_card(dev):
+    with pytest.raises(NotImplementedError):
+        kops.block_hadamard(torch.zeros(2, 64, device=dev), 16)

@@ -1,0 +1,429 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both sides. The JAX
+side runs as its own tests run it here: the Pallas kernels in interpret mode
+through `repro.kernels.ops`; for paged attention the un-jitted kernel entry
+with `interpret=True` inside a scope that aliases the compiler-params class
+this JAX version renamed, and removes the alias again. The port runs on
+`device="cpu"`, i.e. each kernel's plain PyTorch version.
+"""
+import contextlib
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import paged_attention as jpa
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.int4_matmul import int4_colsum, split_plan
+
+
+def T(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def N(t):
+    return t.detach().cpu().numpy()
+
+
+@contextlib.contextmanager
+def tpu_compiler_params_alias():
+    """`pltpu.TPUCompilerParams` for the duration of one call only - a
+    process-wide alias would change which of the JAX package's own tests
+    pass depending on the worker that ran this file."""
+    from jax.experimental.pallas import tpu as pltpu
+    had = hasattr(pltpu, "TPUCompilerParams")
+    if not had:
+        pltpu.TPUCompilerParams = pltpu.CompilerParams
+    try:
+        yield
+    finally:
+        if not had:
+            del pltpu.TPUCompilerParams
+
+
+def jax_paged_attention(q, kv, bt, qpos, lens, **kw):
+    with tpu_compiler_params_alias():
+        out = jpa.paged_attention.__wrapped__(
+            jnp.asarray(q), {k: jnp.asarray(v) for k, v in kv.items()},
+            jnp.asarray(bt), jnp.asarray(qpos),
+            None if lens is None else jnp.asarray(lens),
+            interpret=True, **kw)
+    return np.asarray(out)
+
+
+# -------------------- int4 pack / scales --------------------
+
+def test_int4_pack_unpack_exact():
+    rng = np.random.default_rng(0)
+    codes = rng.integers(-8, 8, (64, 34)).astype(np.int8)
+    want = np.asarray(jref.int4_pack(jnp.asarray(codes)))
+    got = tref.int4_pack(T(codes))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(N(got), want)
+    np.testing.assert_array_equal(N(tref.int4_unpack(got)), codes)
+    np.testing.assert_array_equal(
+        N(tref.int4_unpack(got)), np.asarray(jref.int4_unpack(jnp.asarray(want))))
+    with pytest.raises(ValueError):
+        tref.int4_pack(T(codes[:63]))
+
+
+@pytest.mark.parametrize("on_grid", [True, False])
+def test_infer_scales_and_pack_weights_exact(on_grid):
+    """Same grid, same nibbles, and the stored column sums are those of
+    the unpacked codes. Exact: every step is elementwise f32 arithmetic or
+    an integer sum, and the candidate errors are far from ties."""
+    rng = np.random.default_rng(1)
+    k, n = 96, 34
+    if on_grid:
+        s = rng.uniform(0.01, 0.1, (1, n)).astype(np.float32)
+        top = rng.integers(3, 8, (n,))             # some channels never hit 7
+        w = (np.clip(rng.integers(-7, 8, (k, n)), -top, top) * s).astype(np.float32)
+    else:
+        w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    js = np.asarray(jops.infer_int4_scales(jnp.asarray(w)))
+    ts = tops.infer_int4_scales(T(w))
+    np.testing.assert_array_equal(N(ts), js)
+    jp = jops.pack_int4_weights(jnp.asarray(w))
+    tp = tops.pack_int4_weights(T(w))
+    np.testing.assert_array_equal(N(tp["packed"]), np.asarray(jp["packed"]))
+    np.testing.assert_array_equal(N(tp["scale"]), np.asarray(jp["scale"]))
+    unpacked = np.asarray(jref.int4_unpack(jp["packed"])).astype(np.int64)
+    np.testing.assert_array_equal(N(tp["colsum"]), unpacked.sum(0))
+    assert tp["colsum"].dtype == torch.int32
+    np.testing.assert_array_equal(N(int4_colsum(tp["packed"])), unpacked.sum(0))
+    # explicit scales, given as [1, N]
+    tp2 = tops.pack_int4_weights(T(w), T(js[None]))
+    np.testing.assert_array_equal(N(tp2["packed"]), N(tp["packed"]))
+
+
+# -------------------- int4_matmul --------------------
+
+@pytest.mark.parametrize("m,k,n", [
+    (4, 128, 64), (16, 256, 128), (33, 64, 34),   # N = 2 * prime
+    (1, 250, 514),                                 # K = 2 * odd, N = 2 * prime
+])
+def test_int4_matmul_matches_jax_kernel(m, k, n):
+    """Integer accumulator exact; output to rtol 1e-6 (the epilogue is three
+    f32 roundings in the same order on both sides; XLA may fuse a
+    multiply-add)."""
+    rng = np.random.default_rng(2)
+    qa = rng.integers(0, 16, (m, k)).astype(np.int8)
+    wc = rng.integers(-7, 8, (k, n)).astype(np.int8)
+    sa = rng.uniform(0.01, 0.2, (m, 1)).astype(np.float32)
+    za = np.round(rng.uniform(-12, 0, (m, 1))).astype(np.float32)
+    sw = rng.uniform(0.001, 0.02, (n,)).astype(np.float32)
+    wp = N(tref.int4_pack(T(wc)))
+    acc_want = qa.astype(np.int64) @ wc.astype(np.int64)
+    ones_m, ones_n = np.ones_like(sa), np.ones_like(sw)
+    acc = tops.int4_matmul(T(qa), T(ones_m), T(np.zeros_like(za)), T(wp), T(ones_n))
+    np.testing.assert_array_equal(N(acc).astype(np.int64), acc_want)
+    want = np.asarray(jops.int4_matmul(jnp.asarray(qa), jnp.asarray(sa),
+                                       jnp.asarray(za), jnp.asarray(wp),
+                                       jnp.asarray(sw)))
+    for w_scale in (sw, sw[None]):                 # [N] and [1, N]
+        got = tops.int4_matmul(T(qa), T(sa), T(za), T(wp), T(w_scale))
+        assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+        np.testing.assert_allclose(N(got), want, rtol=1e-6, atol=1e-7)
+    # stored column sums give the same bits as recomputed ones
+    got_cs = tops.int4_matmul(T(qa), T(sa), T(za), T(wp), T(sw),
+                              int4_colsum(T(wp)))
+    np.testing.assert_array_equal(N(got_cs), N(got))
+
+
+def test_int4_matmul_leading_dims():
+    rng = np.random.default_rng(3)
+    qa = rng.integers(0, 16, (2, 3, 64)).astype(np.int8)
+    sa = rng.uniform(0.01, 0.2, (2, 3, 1)).astype(np.float32)
+    za = np.round(rng.uniform(-12, 0, (2, 3, 1))).astype(np.float32)
+    wp = rng.integers(0, 256, (32, 48)).astype(np.uint8)
+    sw = rng.uniform(0.001, 0.02, (48,)).astype(np.float32)
+    want = np.asarray(jops.int4_matmul(*(jnp.asarray(a) for a in (qa, sa, za, wp, sw))))
+    got = tops.int4_matmul(T(qa), T(sa), T(za), T(wp), T(sw))
+    assert tuple(got.shape) == (2, 3, 48)
+    np.testing.assert_allclose(N(got), want, rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError):
+        tops.int4_matmul(T(qa[..., :62]), T(sa), T(za), T(wp), T(sw))
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 2048, 2048), (4, 512, 2048),
+                                   (32, 8192, 2048), (4, 2048, 8192),
+                                   (256, 8192, 2048), (5, 514, 250)])
+def test_int4_split_plan_covers_k(m, n, k):
+    kc, splits = split_plan(m, n, k)
+    assert kc % 4 == 0 and splits >= 1
+    assert kc * splits >= k > kc * (splits - 1)
+
+
+# -------------------- hadamard_quant / quantize_act --------------------
+
+@pytest.mark.parametrize("b", [1, 16, 32, 12])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_hadamard_quant_matches_jax_kernel(b, bits):
+    """scale / zero to rtol 1e-5; dequantised values within one scale step;
+    codes differ at no more than 0.5 % of the entries. The two sides sum the
+    rotation in different orders, so a rotated value can land on the other
+    side of a rounding tie - one code step, never more."""
+    rng = np.random.default_rng(4)
+    d = 384 if b == 12 else 256
+    x = (rng.standard_normal((2, 9, d)) * 3).astype(np.float32)
+    x[..., ::37] *= 10.0
+    if b == 1:
+        jc, js, jz = jops.quantize_act(jnp.asarray(x), bits)
+        tc, ts, tz = tops.quantize_act(T(x), bits)
+    else:
+        jc, js, jz = jops.hadamard_quant(jnp.asarray(x), b, bits=bits)
+        tc, ts, tz = tops.hadamard_quant(T(x), b, bits=bits)
+    jc, js, jz = (np.asarray(a) for a in (jc, js, jz))
+    assert tc.dtype == torch.int8 and tuple(tc.shape) == x.shape
+    assert tuple(ts.shape) == tuple(tz.shape) == (2, 9, 1)
+    np.testing.assert_allclose(N(ts), js, rtol=1e-5)
+    np.testing.assert_allclose(N(tz), jz, rtol=1e-5, atol=0)
+    deq_t = N(ts) * (N(tc).astype(np.float32) + N(tz))
+    deq_j = js * (jc.astype(np.float32) + jz)
+    assert np.all(np.abs(deq_t - deq_j) <= js * 1.0001)
+    assert np.mean(N(tc) != jc) <= 5e-3
+    if bits == 4:
+        assert N(tc).min() >= 0 and N(tc).max() <= 15
+
+
+def test_hadamard_quant_vs_independent_oracle_and_errors():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((7, 128)).astype(np.float32)
+    tc, ts, tz = tops.hadamard_quant(T(x), 32)
+    rot = np.asarray(jref.block_hadamard_ref(jnp.asarray(x), 32))
+    deq = N(ts) * (N(tc).astype(np.float32) + N(tz))
+    step = (rot.max(-1) - rot.min(-1)) / 15
+    assert (np.abs(deq - rot).max(-1) <= step + 1e-5).all()
+    np.testing.assert_allclose(N(tref.block_hadamard_ref(T(x), 32)), rot, atol=1e-5)
+    with pytest.raises(ValueError):
+        tops.hadamard_quant(T(x), 48)
+
+
+# -------------------- paged attention --------------------
+
+B, KH, G, DH = 3, 2, 2, 32
+H = KH * G
+
+
+def make_pool(rng, fmt, n_pages, t):
+    shape = (n_pages, t, KH, DH)
+    if fmt == "float":
+        return {"k": rng.standard_normal(shape).astype(np.float32),
+                "v": rng.standard_normal(shape).astype(np.float32)}
+    bits = {"int8": 8, "int4": 4}[fmt]
+    off, levels = 2 ** (bits - 1), 2 ** bits - 1
+    kv = {}
+    for nm in ("k", "v"):
+        kv[nm] = (rng.integers(0, levels + 1, shape) - off).astype(np.int8)
+        # scales sized so that dequantised values are O(1) in both formats
+        # (the absolute tolerance below is a few f32 ulps at that size)
+        hi = 0.2 if bits == 4 else 0.0125
+        kv[nm + "_scale"] = rng.uniform(
+            hi / 10, hi, (n_pages, t, KH, 1)).astype(np.float32)
+        kv[nm + "_zero"] = np.round(rng.uniform(
+            -0.75 * levels, 0.125 * levels,
+            (n_pages, t, KH, 1))).astype(np.float32)
+    return kv
+
+
+def numpy_oracle(q, kv, bt, qpos, *, kv_bits, rope_theta):
+    """Gather-to-slab + plain-softmax causal attention in float64 numpy,
+    written independently of both kernels' helpers."""
+    b, s, h, dh = q.shape
+    t, kh = kv["k"].shape[1], kv["k"].shape[2]
+    g = h // kh
+    sk = bt.shape[1] * t
+    k = kv["k"][bt].reshape(b, sk, kh, dh).astype(np.float64)
+    v = kv["v"][bt].reshape(b, sk, kh, dh).astype(np.float64)
+    if kv_bits is not None:
+        off = 2 ** (kv_bits - 1)
+        k = kv["k_scale"][bt].reshape(b, sk, kh, 1) * (
+            k + off + kv["k_zero"][bt].reshape(b, sk, kh, 1))
+        v = kv["v_scale"][bt].reshape(b, sk, kh, 1) * (
+            v + off + kv["v_zero"][bt].reshape(b, sk, kh, 1))
+        freqs = 1.0 / rope_theta ** (np.arange(0, dh, 2) / dh)
+        ang = np.arange(sk)[:, None] * freqs
+        cos, sin = np.cos(ang)[None, :, None], np.sin(ang)[None, :, None]
+        k1, k2 = k[..., :dh // 2], k[..., dh // 2:]
+        k = np.concatenate([k1 * cos - k2 * sin, k2 * cos + k1 * sin], -1)
+    qg = q.astype(np.float64).reshape(b, s, kh, g, dh)
+    logits = np.einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(dh)
+    valid = np.arange(sk)[None, None, :] <= qpos[:, :, None]
+    logits = np.where(valid[:, None, None], logits, -np.inf)
+    logits -= logits.max(-1, keepdims=True)
+    p = np.exp(logits)
+    p /= p.sum(-1, keepdims=True)
+    out = np.einsum("bkgqs,bskd->bqkgd", p, v)
+    return out.reshape(b, s, h, dh)
+
+
+def make_case(rng, fmt, t, s, lens, n_cols):
+    n_pages = 1 + B * n_cols
+    kv = make_pool(rng, fmt, n_pages, t)
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((B, n_cols), np.int32)
+    for i, ln in enumerate(lens):
+        used = -(-ln // t)
+        bt[i, :used] = perm[i * n_cols:i * n_cols + used]
+    q = rng.standard_normal((B, s, H, DH)).astype(np.float32)
+    lens = np.asarray(lens, np.int32)
+    qpos = np.stack([np.arange(max(ln - s, 0), max(ln - s, 0) + s)
+                     for ln in lens]).astype(np.int32)
+    bits = {"float": None, "int8": 8, "int4": 4}[fmt]
+    kw = dict(rope_theta=10000.0 if bits else None, kv_bits=bits,
+              kv_group=DH if bits else None)
+    return q, kv, bt, qpos, lens, kw
+
+
+@pytest.mark.parametrize("fmt", ["float", "int8", "int4"])
+@pytest.mark.parametrize("mode", ["prefill", "decode"])
+def test_paged_attention_plain_matches_jax_kernel_and_oracle(fmt, mode):
+    """atol 2e-5 in f32 against the interpret-mode JAX kernel (same walk,
+    same split order; einsum and exp implementations differ in the last
+    bits) and against the float64 gather + softmax oracle. Ragged lengths,
+    one row of length 0 (comes out as exact zeros), and - for decode - a
+    table wider than 4 columns so the split path and the combine run."""
+    rng = np.random.default_rng(6)
+    t = 8
+    if mode == "prefill":
+        s, lens, n_cols = 8, [24, 8, 13], 4
+    else:
+        s, lens, n_cols = 1, [50, 0, 17], 8
+    q, kv, bt, qpos, lens, kw = make_case(rng, fmt, t, s, lens, n_cols)
+    if mode == "decode":
+        assert tpa.resolve_tiling(s, KH, n_cols)[1] > 1
+    want = jax_paged_attention(q, kv, bt, qpos, lens, **kw)
+    got = tops.paged_attention(T(q), {k: T(v) for k, v in kv.items()}, T(bt),
+                               T(qpos), T(lens), **kw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == q.shape
+    np.testing.assert_allclose(N(got), want, atol=2e-5, rtol=0)
+    live = lens > 0
+    oracle = numpy_oracle(q, kv, bt, qpos, kv_bits=kw["kv_bits"],
+                          rope_theta=kw["rope_theta"])
+    if mode == "prefill":
+        # rows whose position precedes the sequence (none here) aside, every
+        # query row of a live sequence is comparable
+        np.testing.assert_allclose(N(got)[live], oracle[live], atol=2e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(N(got)[live], oracle[live], atol=2e-5, rtol=0)
+        assert np.all(N(got)[~live] == 0.0)
+    assert np.isfinite(N(got)).all()
+
+
+def test_paged_attention_without_seq_lengths_and_explicit_splits():
+    rng = np.random.default_rng(7)
+    q, kv, bt, qpos, lens, kw = make_case(rng, "int4", 8, 1, [50, 9, 17], 8)
+    tkv = {k: T(v) for k, v in kv.items()}
+    base = tops.paged_attention(T(q), tkv, T(bt), T(qpos), T(lens), **kw)
+    derived = tops.paged_attention(T(q), tkv, T(bt), T(qpos), None, **kw)
+    np.testing.assert_array_equal(N(derived), N(base))
+    want = jax_paged_attention(q, kv, bt, qpos, None, kv_splits=3, **kw)
+    got = tops.paged_attention(T(q), tkv, T(bt), T(qpos), None, kv_splits=3, **kw)
+    np.testing.assert_allclose(N(got), want, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(N(got), N(base), atol=2e-5, rtol=0)
+
+
+def test_combine_partials_with_dead_splits():
+    rng = np.random.default_rng(8)
+    b, ks, h, s, dh = 2, 4, 4, 3, 16
+    m = (rng.standard_normal((b, ks, h, s)) * 4).astype(np.float32)
+    l = rng.uniform(0.5, 8, (b, ks, h, s)).astype(np.float32)
+    acc = rng.standard_normal((b, ks, h, s, dh)).astype(np.float32)
+    m[:, 2:] = -np.inf
+    l[:, 2:] = 0
+    acc[:, 2:] = 0
+    m[1, :, 0] = -np.inf          # one output row with no live split at all
+    l[1, :, 0] = 0
+    acc[1, :, 0] = 0
+    got = N(tpa.combine_partials_plain(T(m), T(l), T(acc)))
+    want = np.stack([np.asarray(jpa.combine_partials(
+        jnp.asarray(m[i]), jnp.asarray(l[i]), jnp.asarray(acc[i])))
+        for i in range(b)])
+    assert got.shape == (b, s, h, dh)
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-6)
+    assert np.all(got[1, :, 0] == 0.0) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, N(tref.combine_partials_ref(T(m), T(l), T(acc))))
+
+
+def test_tiling_and_used_pages_equal_on_a_sweep():
+    for s in (1, 2, 3, 4, 8, 12, 16, 32, 33):
+        for kh in (1, 2, 8):
+            for n_cols in (1, 2, 4, 5, 8, 16, 31, 32, 33, 64, 100):
+                assert tpa.resolve_tiling(s, kh, n_cols) \
+                    == jpa.resolve_tiling(s, kh, n_cols)
+                for ksp in (1, 2, 3, 7):
+                    assert tpa.resolve_tiling(s, kh, n_cols, kv_splits=ksp) \
+                        == jpa.resolve_tiling(s, kh, n_cols, kv_splits=ksp)
+    with pytest.raises(ValueError):
+        tpa.resolve_tiling(6, 2, 4, q_block=4)
+    assert (tpa.SPLIT_PAGE_COLS, tpa.MAX_KV_SPLITS, tpa.MASK_VALUE) \
+        == (jpa.SPLIT_PAGE_COLS, jpa.MAX_KV_SPLITS, jpa.MASK_VALUE)
+    rng = np.random.default_rng(9)
+    for page in (4, 8, 16):
+        for n_cols in (1, 4, 9):
+            lens = rng.integers(0, 200, (6,)).astype(np.int32)
+            qpos = rng.integers(0, 200, (6, 3)).astype(np.int32)
+            for ln in (lens, None):
+                want = np.asarray(jpa.used_page_counts(
+                    jnp.asarray(qpos), None if ln is None else jnp.asarray(ln),
+                    page, n_cols))
+                got = tpa.used_page_counts(
+                    T(qpos), None if ln is None else T(ln), page, n_cols)
+                assert got.dtype == torch.int32
+                np.testing.assert_array_equal(N(got), want)
+
+
+@pytest.mark.parametrize("dh,theta", [(32, 10000.0), (64, 500000.0), (128, 1e6)])
+def test_rope_frequencies_are_the_reference_literal(dh, theta):
+    np.testing.assert_array_equal(N(tpa.rope_frequencies(dh, theta)),
+                                  np.asarray(jpa.rope_frequencies(dh, theta)))
+
+
+def test_block_hadamard_is_plain_only_and_dispatch_counts():
+    x = torch.randn(3, 64)
+    tops.reset_dispatch_counts()
+    y = tops.block_hadamard(x, 16)
+    np.testing.assert_allclose(
+        N(y), np.asarray(jref.block_hadamard_ref(jnp.asarray(N(x)), 16)), atol=1e-5)
+    tops.quantize_act(x)
+    with tops.use_kernels(False):
+        assert not tops.kernels_enabled()
+        tops.quantize_act(x)
+    assert tops.kernels_enabled()
+    counts = tops.dispatch_counts()
+    assert counts[("block_hadamard", "plain")] == 1
+    assert counts[("quantize_act", "plain")] == 2
+    assert all(path == "plain" for _, path in counts)      # CPU tensors
+    assert set(tops.kernel_launch_counts()) == {
+        "hadamard_quant", "int4_matmul", "paged_attention", "combine_partials"}
+    assert all(v == 0 for v in tops.kernel_launch_counts().values())
+
+
+def test_module_wrappers_launch_or_raise():
+    """The CPU-to-plain decision lives in `kernels.ops` only: the wrappers
+    beside the kernels refuse a tensor that is not on a CUDA device."""
+    from repro_torch.kernels import hadamard_quant as thq
+    from repro_torch.kernels import int4_matmul as ti4
+    x = torch.randn(2, 32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        thq.hadamard_quant(x, 16)
+    codes, s, z = tops.quantize_act(x)
+    w = tops.pack_int4_weights(torch.randn(32, 6))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ti4.int4_matmul(codes, s, z, w["packed"], w["scale"], w["colsum"])
+    kv = {"k": torch.zeros(2, 4, 1, 8), "v": torch.zeros(2, 4, 1, 8)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpa.paged_attention(torch.zeros(1, 1, 2, 8), kv,
+                            torch.zeros(1, 1, dtype=torch.int32),
+                            torch.zeros(1, 1, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpa.combine_partials(torch.zeros(1, 2, 2, 1), torch.zeros(1, 2, 2, 1),
+                             torch.zeros(1, 2, 2, 1, 8))
+    assert all(v == 0 for v in tops.kernel_launch_counts().values())
