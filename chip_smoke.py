@@ -7,15 +7,20 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc/`, holds each
 against its plain PyTorch version on the card at the serving path's
 full-width shapes, serves llama3-1b (16 layers, seeded random weights)
 through `repro_torch.launch.serve` with true-integer W4A4 arithmetic and an
-int4 KV page pool, and checks the kernels' logits against the plain
-versions' on the same state. Phases print one JSON line each:
+int4 KV page pool - once plain, once observed (`--probe-every 4 --trace
+--metrics-json`, which runs `block_hadamard` in the rotation-quality probe)
+- and checks the kernels' logits against the plain versions' on the same
+state. Phases print one JSON line each:
 
     device   card name and power limit (nvidia-smi)
     build    seconds nvcc took
     kernels  per kernel: error against the plain version, times, bound
-    serve    the launcher at full width and depth, then two short runs
-    parity   one prefill chunk and one decode step, kernels vs plain
-    profile  (only with --profile) where a decode step's time goes
+    serve    the launcher at full width and depth, plain and observed, then
+             two short runs
+    parity   one prefill chunk and one decode step, kernels vs plain, and
+             the probed decode step against the unprobed one
+    profile  (only with --profile) where a decode step's time goes, without
+             and with the probe
 
 then the card's `name, power.limit`, then one `{"kernels": [...]}` object
 with the per-kernel record of this run, then as the last line
@@ -32,8 +37,10 @@ import contextlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -50,6 +57,7 @@ if not torch.cuda.is_available():
 import numpy as np  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import block_hadamard as BH  # noqa: E402
 from repro_torch.kernels import hadamard_quant as HQ  # noqa: E402
 from repro_torch.kernels import int4_matmul as I4  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
@@ -78,6 +86,10 @@ KERNEL_META = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:352"},
+    "block_hadamard": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_hadamard.cu",
+        "replaces": "src/repro/kernels/block_hadamard.py:79"},
 }
 
 
@@ -360,10 +372,66 @@ def check_combine(rng, b, ks, h, s, dh):
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+def check_block_hadamard(rng, shape, b, dtype):
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3.0)
+    x[..., :: max(1, shape[-1] // 16)] *= 12.0  # a few outlier channels
+    x = x.to(DEV).to(dtype)
+    y = BH.block_hadamard(x, b)
+    torch.cuda.synchronize()
+    want = BH.block_hadamard_plain(x, b)
+    err = float((y.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    # Pass rule: the kernel's butterfly (or b-wide dot product) and the plain
+    # dense product are the same f32 sums in another order: 2e-5 of max|y|;
+    # a bf16 output is that value rounded once, so one bf16 ulp (2^-7
+    # relative) more. A NaN poisons its block of its row and nothing else.
+    tol = 2e-5 * top + (2 ** -7 * want.float().abs()
+                        if dtype == torch.bfloat16 else 0.0)
+    ok = bool(((y.float() - want.float()).abs() <= tol).all())
+    poisoned = x.clone()
+    poisoned.view(-1, shape[-1])[0, 0] = float("nan")
+    out = BH.block_hadamard(poisoned, b).view(-1, shape[-1])
+    nan_ok = bool(out[0, :b].isnan().all()) and bool(out[1:].isfinite().all()) \
+        and bool(out[0, b:].isfinite().all())
+    d = shape[-1]
+    m = x.numel() // d
+    xs = [x.clone() for _ in range(n_copies(x.numel() * x.element_size()))]
+    fns = [lambda t=t: BH.block_hadamard(t, b) for t in xs]
+    ms, call_ms = device_ms(fns), time_ms(fns, 50)
+    plain = time_ms([lambda t=t: BH.block_hadamard_plain(t, b) for t in xs], 10)
+    # yardstick: one torch.matmul against the block-diagonal operand (the
+    # plain version's product without its casts and reshapes)
+    td = HQ.column_tile(b, d)
+    op = HQ.rotation_operand(b, td, DEV).to(dtype)
+    lib = device_ms([lambda t=t: torch.matmul(t.view(-1, d // td, td), op)
+                     for t in xs])
+    pow2 = b & (b - 1) == 0
+    nbytes = 2 * x.numel() * x.element_size() + (0 if pow2 else 4 * b * b)
+    ops = x.numel() * (math.log2(b) + 1 if pow2 else 2 * b)
+    bms, by = bound(nbytes, ops, PEAK_F32_FLOPS_S)
+    return {"shape": f"x[{','.join(map(str, shape))}] "
+                     f"{str(dtype).split('.')[-1]} b={b}",
+            "ok": ok and nan_ok, "max_abs_err": err, "max_abs_y": top,
+            "nan_poisons_its_block_only": nan_ok,
+            "tolerance": "2e-5 of max|y| (+ one bf16 ulp for bf16 output)",
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib,
+            "library": f"torch.matmul of x against I (x) H_{b}/sqrt({b}) "
+                       f"tiles of {td} columns, in {str(dtype).split('.')[-1]}"}
+
+
 def phase_kernels():
     rng = np.random.default_rng(0)
     cases = {"hadamard_quant": [], "int4_matmul": [], "paged_attention": [],
-             "combine_partials": []}
+             "combine_partials": [], "block_hadamard": []}
+    for shape, b, dt in (((4, 1, 8192), 16, torch.float32),   # the probe
+                         ((32, 8192), 16, torch.float32),     # prefill chunk
+                         ((32, 8192), 16, torch.bfloat16),
+                         ((32, 3072), 12, torch.float32),     # Paley order
+                         ((32, 8192), 256, torch.float32),
+                         ((32, 2048), 2048, torch.float32),   # b = D
+                         ((37, 2048), 32, torch.bfloat16)):   # ragged M
+        cases["block_hadamard"].append(check_block_hadamard(rng, shape, b, dt))
     for m in (4, 32):
         for d, b, dt in ((2048, 1, torch.bfloat16), (8192, 16, torch.bfloat16),
                          (8192, 32, torch.bfloat16), (8192, 16, torch.float32),
@@ -400,11 +468,17 @@ def phase_kernels():
 SERVE_ARGS = ["--arch", "llama3-1b", "--integer-path", "--block-size", "16",
               "--admission", "reserve", "--slots", "4", "--page-size", "16",
               "--prefill-chunk", "32", "--max-len", "512", "--device", "cuda"]
+# the kernels every serve run launches; block_hadamard runs only in the
+# rotation-quality probe (--probe-every)
+MAIN_PATH_KERNELS = ("hadamard_quant", "int4_matmul", "paged_attention",
+                     "combine_partials")
+PROBE_EVERY = 4
 
 
-def run_launcher(label, extra):
+def run_launcher(label, extra, expect=MAIN_PATH_KERNELS):
     """One launcher run with every count set to 0 just before and read just
-    after; returns (the launcher's result, record)."""
+    after; every kernel in `expect` must have launched. Returns (the
+    launcher's result, record)."""
     from repro_torch.launch import serve as serve_cli
     buf = io.StringIO()
     kops.reset_kernel_launch_counts()
@@ -416,9 +490,9 @@ def run_launcher(label, extra):
     wall = time.perf_counter() - t0
     launches = kops.kernel_launch_counts()
     plain = {f"{e}": n for (e, path), n in kops.dispatch_counts().items()
-             if path == "plain"}
+             if path == "ref"}
     lines = [ln for ln in buf.getvalue().splitlines()
-             if "served" in ln or ln.startswith("summary:")]
+             if "served" in ln or ln.startswith(("summary:", "quality:"))]
     done, engine, snap = result["done"], result["engine"], result["snapshot"]
     alloc = engine.kv.allocator
     steps = snap["counters"]["engine.steps"]
@@ -445,8 +519,8 @@ def run_launcher(label, extra):
     if alloc.in_use != 0 or alloc.n_free != alloc.capacity or engine.kv.tables:
         problems.append("pages left in use")
     engine.check_books()
-    for name, n in launches.items():
-        if n <= 0:
+    for name in expect:
+        if launches[name] <= 0:
             problems.append(f"kernel {name} was never launched")
     if plain:
         problems.append(f"plain versions ran on the main path: {plain}")
@@ -459,12 +533,89 @@ def run_launcher(label, extra):
     return result, rec
 
 
+def check_observed(rec, result, plain_tokens, trace_path, metrics_path):
+    """The gates of the observed run (`--probe-every --trace
+    --metrics-json`) beyond those of every run: appended to
+    rec["problems"]."""
+    from repro_torch.serve.telemetry import (PROBE_STATS, validate_snapshot,
+                                             validate_trace)
+    problems = rec["problems"]
+    tokens = [r.generated for r in sorted(result["done"], key=lambda r: r.rid)]
+    if tokens != plain_tokens:
+        problems.append("probes and tracing changed the generated tokens")
+    snap = result["snapshot"]
+    n_layers = result["engine"].adapter.cfg.n_layers
+    probed = snap["counters"]["quality.probe_dispatches"]
+    decodes = snap["histograms"]["engine.decode.batch_occupancy"]["count"]
+    if probed != -(-decodes // PROBE_EVERY):
+        problems.append(f"{probed} probed of {decodes} decode dispatches")
+    if rec["kernel_launches"]["block_hadamard"] != n_layers * probed:
+        problems.append(f"block_hadamard launched "
+                        f"{rec['kernel_launches']['block_hadamard']} times, "
+                        f"not {n_layers} x {probed}")
+    quality = {}
+    for stat in PROBE_STATS:
+        h = snap["histograms"][f"quality.{stat}"]
+        layers = [snap["gauges"][f"quality.layer{l:02d}.{stat}"]
+                  for l in range(n_layers)]
+        quality[stat] = {"count": h["count"], "min": h["min"],
+                         "p50": h["p50"], "max": h["max"]}
+        if h["count"] != n_layers * probed or not all(
+                math.isfinite(v) for v in layers + [h["min"], h["max"]]):
+            problems.append(f"quality.{stat}: {h['count']} observations, "
+                            "or a value that is not finite")
+        if stat.startswith("l1_imbalance") and h["min"] < 1.0:
+            problems.append(f"quality.{stat} below 1: {h['min']}")
+    with open(trace_path) as f:
+        trace = json.load(f)
+    try:
+        with open(metrics_path) as f:
+            validate_snapshot(json.load(f))
+        n_events = validate_trace(trace)
+    except ValueError as e:
+        problems.append(f"artifact refused: {e}")
+        n_events = None
+    spans = [e for e in trace["traceEvents"]
+             if e["name"] in ("dispatch.decode", "dispatch.prefill")]
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve.telemetry.check",
+         metrics_path, "--trace", trace_path], capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if cli.returncode != 0:
+        problems.append(f"check CLI exit {cli.returncode}: {cli.stderr}")
+    probe_ms = [e["dur"] / 1e3 for e in spans
+                if e["name"] == "dispatch.decode" and e["args"]["probe"]]
+    plain_ms = [e["dur"] / 1e3 for e in spans
+                if e["name"] == "dispatch.decode" and not e["args"]["probe"]]
+    rec.update(probe_dispatches=probed, decode_dispatches=decodes,
+               quality=quality, trace_events=n_events,
+               check_cli=cli.stdout.strip().splitlines(),
+               traced_decode_ms_median={
+                   "probed": float(np.median(probe_ms)) if probe_ms else None,
+                   "unprobed": float(np.median(plain_ms)) if plain_ms else None})
+    rec["ok"] = not problems
+
+
 def phase_serve():
     torch.cuda.reset_peak_memory_stats()
-    result, full = run_launcher("llama3-1b, 16 layers, int4 KV pages", [
-        "--kv-bits", "4", "--requests", "8", "--max-new", "16",
-        "--prompt-len", "40-160"])
-    runs = [full]
+    full_args = ["--kv-bits", "4", "--requests", "8", "--max-new", "16",
+                 "--prompt-len", "40-160"]
+    result, full = run_launcher("llama3-1b, 16 layers, int4 KV pages",
+                                full_args)
+    plain_tokens = [r.generated
+                    for r in sorted(result["done"], key=lambda r: r.rid)]
+    del result
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "trace.json")
+        metrics_path = os.path.join(tmp, "metrics.json")
+        result, observed = run_launcher(
+            "the same, observed: probes every 4 decode dispatches, traced",
+            full_args + ["--probe-every", str(PROBE_EVERY), "--trace",
+                         trace_path, "--metrics-json", metrics_path],
+            expect=MAIN_PATH_KERNELS + ("block_hadamard",))
+        check_observed(observed, result, plain_tokens, trace_path,
+                       metrics_path)
+    runs = [full, observed]
     adapter = result["engine"].adapter
     del result
     for label, extra in (
@@ -478,7 +629,9 @@ def phase_serve():
     bad = [(r["label"], r["problems"]) for r in runs if not r["ok"]]
     if bad:
         fail(f"serve phase: {bad}")
-    return full, adapter
+    return {**full["kernel_launches"],
+            "block_hadamard": observed["kernel_launches"]["block_hadamard"]}, \
+        adapter
 
 
 # ---------------------------------------------------------------------------
@@ -547,21 +700,44 @@ def phase_parity(adapter):
     nxt[0, 0] = toks[0, 96]
     fill = torch.tensor([96, 0, 0, 0], dtype=torch.int32, device=DEV)
     dl = torch.tensor([97, 0, 0, 0], dtype=torch.int32, device=DEV)
+    pool_q = {k_: v.clone() for k_, v in pool_k.items()}
     before = kops.kernel_launch_counts()["combine_partials"]
     lk, _ = qlm.forward_chunk(params, nxt, pool_k, fill, bt_for(8, b), dl)
     took_split = kops.kernel_launch_counts()["combine_partials"] > before
+    # the probed decode step from the same state: its logits must be those
+    # of the unprobed step bit for bit, and its stats those of the plain
+    # versions' probed step within 1e-4 relative (sat_rate: or within one
+    # code of the layer's b x d_ff codes, for a code on a rounding tie)
+    lq, _, sq = qlm.forward_chunk(params, nxt, pool_q, fill, bt_for(8, b), dl,
+                                  probe=True)
     with kops.use_kernels(False):
-        lp, _ = qlm.forward_chunk(params, nxt, pool_p, fill, bt_for(8, b), dl)
+        lp, _, sp = qlm.forward_chunk(params, nxt, pool_p, fill, bt_for(8, b),
+                                      dl, probe=True)
     torch.cuda.synchronize()
     out.append(compare("decode step [4, 1], row 0 at position 96, rows 1-3 "
                        "of length 0", lk[:, 0], lp[:, 0]))
-    ok = all(c["ok"] for c in out) and took_split
+    probe_neutral = bool(torch.equal(lk, lq))
+    numel = b * cfg.d_ff
+    stats = {}
+    for name in sq:
+        got, want = sq[name].double(), sp[name].double()
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        fine = rel <= 1e-4 or (name == "sat_rate" and float(
+            (got - want).abs().max()) <= 1.0 / numel + 1e-7)
+        stats[name] = {"max_rel_err": rel, "ok": fine and bool(
+            torch.isfinite(got).all()), "kernels": got.tolist()}
+    ok = (all(c["ok"] for c in out) and took_split and probe_neutral
+          and all(v["ok"] for v in stats.values()))
     emit("parity", ok=ok, layers=cfg.n_layers, kv_bits=qlm.kv_bits,
          decode_took_split_path=took_split, steps=out,
+         probed_decode_logits_equal_unprobed=probe_neutral,
+         probe_stats_kernels_vs_plain=stats,
          tolerance=f"{PARITY_FRAC} of max|logit|, greedy tokens equal where "
-                   "the top-2 gap is over twice that (see source)")
+                   "the top-2 gap is over twice that (see source); probed "
+                   "logits bit-equal; probe stats 1e-4 relative")
     if not ok:
-        fail(f"parity phase: {out}, split path {took_split}")
+        fail(f"parity phase: {out}, split path {took_split}, probe neutral "
+             f"{probe_neutral}, probe stats {stats}")
 
 
 # ---------------------------------------------------------------------------
@@ -571,54 +747,77 @@ def phase_parity(adapter):
 def phase_profile(adapter):
     """Where a pure decode step's time goes: 4 sequences of ~100 cached
     tokens, host wall per step, then the same steps under torch.profiler for
-    the device-busy time and the kernels by share."""
+    the device-busy time and the kernels by share - first unprobed, then
+    with the rotation-quality probe on every decode step."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import (EngineRequest, SamplingParams,
                                           ServeEngine)
+    from repro_torch.serve.telemetry import QualityProbes
     engine = ServeEngine(adapter, n_pages=4 * 16 + 1, page_size=16, max_seqs=4,
                          prefill_chunk=32)
     rng = np.random.default_rng(3)
     for rid in range(4):
         engine.submit(EngineRequest(
             rid=rid, prompt=rng.integers(0, adapter.cfg.vocab, 100).tolist(),
-            sampling=SamplingParams(max_new=48)))
+            sampling=SamplingParams(max_new=80)))
     while engine.queue or engine.prefilling:
         engine.step()
-    for _ in range(3):
-        engine.step()
-    torch.cuda.synchronize()
-    n = 10
-    t0 = time.perf_counter()
-    for _ in range(n):
-        engine.step()
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / n
-    kops.reset_kernel_launch_counts()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            engine.step()
-        torch.cuda.synchronize()
-    prof_wall_ms = 1e3 * (time.perf_counter() - t0) / n
-    launches = kops.kernel_launch_counts()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages() if dev_us(e) > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows) / 1e3 / n
-    n_dev = sum(r[2] for r in rows) / n
-    emit("profile", decode_rows=len(engine.decoding), steps=n,
-         ms_per_decode_step=wall_ms, ms_per_decode_step_profiled=prof_wall_ms,
-         device_busy_ms_per_step=busy_ms,
-         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-         device_kernels_per_step=n_dev,
-         hand_written_launches_per_step={k: v / n for k, v in launches.items()},
-         top_device_kernels=[{"name": k[:90], "ms_per_step": us / 1e3 / n,
-                              "calls_per_step": c / n} for k, us, c in rows[:14]])
+    def measure(n=10, warmup=3):
+        for _ in range(warmup):
+            engine.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+        kops.reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                engine.step()
+            torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t0) / n
+        launches = kops.kernel_launch_counts()
+        # kernel events only: an aten op's own row repeats the device time
+        # of the kernels it launched, so summing every row counts it twice
+        rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        rows.sort(key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows) / 1e3 / n
+        return dict(
+            decode_rows=len(engine.decoding), steps=n,
+            ms_per_decode_step=wall_ms,
+            ms_per_decode_step_profiled=prof_wall_ms,
+            device_busy_ms_per_step=busy_ms,
+            device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+            device_kernels_per_step=sum(r[2] for r in rows) / n,
+            hand_written_launches_per_step={k: v / n
+                                            for k, v in launches.items()},
+            top_device_kernels=[{"name": k[:90], "ms_per_step": us / 1e3 / n,
+                                 "calls_per_step": c / n}
+                                for k, us, c in rows[:14]])
+
+    plain = measure()
+    # the same engine from here on runs the probe variant of every decode
+    # step (the first request is ~12 decode steps in when the last one has
+    # prefilled; with the 44 steps measured here all 4 rows stay live)
+    engine.quality_probes = QualityProbes(every_k=1)
+    engine.quality_probes.bind(engine.metrics)
+    probed = measure(warmup=1)
+    emit("profile", **plain, probed_every_step=probed,
+         probe_cost_ms_per_step=probed["ms_per_decode_step"]
+         - plain["ms_per_decode_step"],
+         probe_cost_device_ms_per_step=probed["device_busy_ms_per_step"]
+         - plain["device_busy_ms_per_step"])
 
 
 # ---------------------------------------------------------------------------
@@ -630,6 +829,7 @@ REPORTED = {
     "int4_matmul": "q_a[4,2048] w[1024,8192]",
     "paged_attention": "decode: q[4,1,32,64] bf16, int4 pages",
     "combine_partials": "m,l[4,2,32,1]",
+    "block_hadamard": "x[4,1,8192] float32 b=16",
 }
 
 
@@ -675,12 +875,12 @@ def main(argv=None):
     smi = phase_device()
     phase_build(args.ptxas)
     cases = phase_kernels()
-    full, adapter = phase_serve()
+    launches, adapter = phase_serve()
     phase_parity(adapter)
     if args.profile:
         phase_profile(adapter)
     print(smi, flush=True)
-    print(json.dumps(kernel_record(cases, full["kernel_launches"])), flush=True)
+    print(json.dumps(kernel_record(cases, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

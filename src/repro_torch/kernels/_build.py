@@ -32,6 +32,7 @@ _I = ctypes.c_int
 
 # function name -> argtypes (the stream is the last pointer of each)
 SIGNATURES = {
+    "block_hadamard_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
     "hadamard_quant_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "int4_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "paged_attention_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -18,10 +18,10 @@ import contextlib
 
 import torch
 
+from . import block_hadamard as _bh
 from . import hadamard_quant as _hq
 from . import int4_matmul as _i4
 from . import paged_attention as _pa
-from . import ref as _ref
 
 __all__ = [
     "use_kernels",
@@ -42,12 +42,14 @@ __all__ = [
 _STATE = {"enabled": True}
 
 # Per-(entry point, path) call tallies: path is "kernels" when the call
-# launched a CUDA kernel and "plain" when it ran the plain PyTorch version.
+# launched a CUDA kernel and "ref" when it ran the plain PyTorch version (the
+# reference's path tags, so the engine mirrors them into its metrics as
+# `kernels.dispatch.<entry>.<kernels|ref>`).
 _DISPATCH: dict[tuple[str, str], int] = {}
 
 
 def _record_dispatch(entry: str, on_kernel: bool):
-    key = (entry, "kernels" if on_kernel else "plain")
+    key = (entry, "kernels" if on_kernel else "ref")
     _DISPATCH[key] = _DISPATCH.get(key, 0) + 1
 
 
@@ -62,11 +64,11 @@ def reset_dispatch_counts():
 
 def kernel_launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel, counted where it is launched."""
-    return {**_hq.LAUNCHES, **_i4.LAUNCHES, **_pa.LAUNCHES}
+    return {**_bh.LAUNCHES, **_hq.LAUNCHES, **_i4.LAUNCHES, **_pa.LAUNCHES}
 
 
 def reset_kernel_launch_counts():
-    for counts in (_hq.LAUNCHES, _i4.LAUNCHES, _pa.LAUNCHES):
+    for counts in (_bh.LAUNCHES, _hq.LAUNCHES, _i4.LAUNCHES, _pa.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -92,15 +94,13 @@ def _on_kernel(t: torch.Tensor) -> bool:
 
 
 def block_hadamard(x: torch.Tensor, b: int) -> torch.Tensor:
-    """Online block rotation X (I (x) H_b) / sqrt(b). Only the plain version
-    exists so far: a CUDA tensor outside `use_kernels(False)` raises."""
+    """Online block rotation X (I (x) H_b) / sqrt(b) over the last axis, in
+    x's dtype; x may be [..., D]."""
     on_kernel = _on_kernel(x)
-    if on_kernel:
-        raise NotImplementedError(
-            "block_hadamard has no CUDA kernel yet (ROADMAP Queue B4); "
-            "nothing on the integer serving path calls it")
-    _record_dispatch("block_hadamard", False)
-    return _ref.block_hadamard_ref(x, b)
+    _record_dispatch("block_hadamard", on_kernel)
+    if not on_kernel:
+        return _bh.block_hadamard_plain(x, b)
+    return _bh.block_hadamard(x, b)
 
 
 def hadamard_quant(x: torch.Tensor, b: int, *, bits: int = 4):

@@ -10,13 +10,20 @@ packed-int4 integer path (`--integer-path`, dense archs, optional
 `--kv-bits {4,8}` integer KV pages) with `--preset rtn_only`: the weights
 are freshly initialised from a seeded generator, given LLM-like outlier
 channels, and rounded to nearest on a per-channel symmetric int4 grid. The
-calibrated presets, the bf16 and fake-quant paths, the prefix cache, the
-swap tier, tracing and probes are not ported yet; asking for one exits with
-a line naming the ROADMAP queue item.
+calibrated presets, the bf16 and fake-quant paths, the prefix cache and the
+swap tier are not ported yet; asking for one exits with a line naming the
+ROADMAP queue item.
+
+Observability, as in the JAX launcher: `--metrics-json PATH` writes the
+engine's schema-validated registry snapshot, `--trace PATH` records request
+lifecycles and each forward as Chrome Trace JSON (open in
+https://ui.perfetto.dev), and `--probe-every K` samples the rotation-quality
+activation probes every K decode forwards (integer path). Both files pass
+`python -m repro_torch.serve.telemetry.check m.json --trace t.json`.
 
 Every run ends with `served N requests...`, one `req i: prompt -> tokens`
 line per request and a one-line `summary:` from the engine's metrics
-registry; `--metrics-json PATH` writes the whole snapshot.
+registry (and a `quality:` line when probes ran).
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ from ..models import layers as L
 from ..serve.engine import (EngineRequest, SamplingParams, ServeEngine,
                             as_servable, pages_for)
 from ..serve.quantized import QuantizedDenseLM, pack_dense_params
+from ..serve.telemetry import (QualityProbes, Tracer, validate_snapshot,
+                               validate_trace)
 
 # the JAX launcher's preset names; only the first needs no calibration
 PRESETS = ("rtn_only", "quarot", "perq_star", "perq_dagger", "mr_rtn",
@@ -50,14 +59,32 @@ def summary_line(snap: dict) -> str:
     wall = h["engine.step.wall_s"]["sum"]
     lat = h["engine.decode.token_latency_s"]
     wait = h["engine.admission.wait_s"]
-    return (f"summary: {toks} tokens in {wall:.2f}s engine time "
-            f"({toks / max(wall, 1e-9):.1f} tok/s) | "
-            f"token latency p50 {_ms(lat['p50'])} p95 {_ms(lat['p95'])} | "
-            f"peak pages {g['engine.pages.peak_in_use']:.0f}"
-            f"/{g['engine.pages.capacity']:.0f} "
-            f"({g['engine.pages.utilization_peak']:.0%} peak util)"
-            f" | fail {c['engine.requests.failed']}"
-            f" | admission wait p95 {_ms(wait['p95'])}")
+    out = (f"summary: {toks} tokens in {wall:.2f}s engine time "
+           f"({toks / max(wall, 1e-9):.1f} tok/s) | "
+           f"token latency p50 {_ms(lat['p50'])} p95 {_ms(lat['p95'])} | "
+           f"peak pages {g['engine.pages.peak_in_use']:.0f}"
+           f"/{g['engine.pages.capacity']:.0f} "
+           f"({g['engine.pages.utilization_peak']:.0%} peak util)")
+    if "engine.register_slots.peak_in_use" in g:
+        out += (f" | peak slots {g['engine.register_slots.peak_in_use']:.0f}"
+                f"/{g['engine.register_slots.capacity']:.0f}")
+    lookups = c["engine.prefix.hits"] + c["engine.prefix.misses"]
+    if lookups:
+        out += (f" | prefix hit-rate "
+                f"{c['engine.prefix.hits'] / lookups:.0%} "
+                f"({c['engine.prefix.hit_tokens']} tokens, "
+                f"{c['engine.prefix.cow_copies']} COW)")
+    if c["engine.swap.out"] or c["engine.swap.in"] or c["engine.swap.fallbacks"]:
+        out += (f" | swap out {c['engine.swap.out']} "
+                f"in {c['engine.swap.in']} "
+                f"({c['engine.swap.bytes'] / 2**20:.1f} MiB, "
+                f"{c['engine.swap.retries']} retries, "
+                f"{c['engine.swap.fallbacks']} fallbacks)")
+    out += (f" | preempt {c['engine.preemptions']} "
+            f"cancel {c['engine.requests.cancelled']} "
+            f"expire {c['engine.requests.expired']} "
+            f"fail {c['engine.requests.failed']}")
+    return out + f" | admission wait p95 {_ms(wait['p95'])}"
 
 
 def init_dense_params(cfg, gen: torch.Generator) -> dict:
@@ -121,9 +148,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-quant", action="store_true")
     ap.add_argument("--legacy-scheduler", action="store_true")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
-                    help="write the engine metrics snapshot as JSON")
-    ap.add_argument("--trace", default=None, metavar="PATH")
-    ap.add_argument("--probe-every", type=int, default=0, metavar="K")
+                    help="write the schema-validated engine metrics "
+                    "snapshot as JSON")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record a Chrome Trace Event JSON (Perfetto)")
+    ap.add_argument("--probe-every", type=int, default=0, metavar="K",
+                    help="sample rotation-quality activation probes every "
+                    "K decode dispatches (integer path only; 0 disables)")
     ap.add_argument("--admission", default="reserve",
                     choices=["optimistic", "reserve"],
                     help="admission policy: reserve commits worst-case "
@@ -161,9 +192,6 @@ def _refuse_unported(args):
          "--drain-after: drain is ROADMAP Queue A5"),
         (args.deadline_s is not None,
          "--deadline-s: request deadlines are ROADMAP Queue A5"),
-        (args.trace is not None, "--trace: tracing is ROADMAP Queue A6"),
-        (args.probe_every != 0,
-         "--probe-every: quality probes are ROADMAP Queue A6"),
         (args.admission == "optimistic",
          "--admission optimistic: preemption and replay are ROADMAP "
          "Queue A5; use --admission reserve"),
@@ -175,6 +203,9 @@ def _refuse_unported(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.probe_every and not args.integer_path:
+        raise SystemExit("--probe-every needs --integer-path: the probes "
+                         "read the fused rotate+quantize site")
     _refuse_unported(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
@@ -223,12 +254,16 @@ def main(argv=None):
                   + [pages_for(len(p) + args.max_new, args.page_size)
                      for p in prompts])
     n_pages = args.slots * per_seq + 1
+    tracer = Tracer() if args.trace else None
+    probes = QualityProbes(every_k=args.probe_every) if args.probe_every \
+        else None
     engine = ServeEngine(adapter, n_pages=n_pages, page_size=args.page_size,
                          max_seqs=args.slots,
                          prefill_chunk=args.prefill_chunk,
                          admission=args.admission, seed=args.seed,
                          max_context=max(args.max_len,
-                                         per_seq * args.page_size))
+                                         per_seq * args.page_size),
+                         tracer=tracer, quality_probes=probes)
     for rid, prompt in enumerate(prompts):
         engine.submit(EngineRequest(
             rid=rid, prompt=prompt,
@@ -246,11 +281,22 @@ def main(argv=None):
         print(f"req {r.rid}: {r.prompt} → {r.generated}{mark}")
 
     snap = engine.metrics_snapshot()
+    validate_snapshot(snap)     # never write an off-schema artifact
     print(summary_line(snap))
+    if probes is not None:
+        imb = snap["histograms"]["quality.l1_imbalance_post"]
+        print(f"quality: post-rotation l1 imbalance p50 {imb['p50']:.3f} "
+              f"over {imb['count']} layer observations "
+              f"({snap['counters']['quality.probe_dispatches']} probed "
+              "dispatches)")
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:
             json.dump(snap, f, indent=1)
         print(f"metrics snapshot → {args.metrics_json}")
+    if tracer is not None:
+        validate_trace(tracer.to_dict())
+        tracer.save(args.trace)
+        print(f"trace ({len(tracer.events)} events) → {args.trace}")
     return {"done": done, "engine": engine, "snapshot": snap}
 
 

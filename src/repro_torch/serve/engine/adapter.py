@@ -105,6 +105,10 @@ class ServableModel(Protocol):
 
 class _AdapterBase:
     name: str
+    # quality probes (serve.telemetry.quality) are instrumented on the
+    # integer path; adapters that cannot run them advertise it so the
+    # engine rejects a probed configuration at construction, not mid-run
+    supports_quality_probes: bool = False
 
     def __init__(self, cfg, params: Params):
         # capability check: raises for encoder/frontend configs
@@ -125,6 +129,8 @@ class IntegerModelAdapter(_AdapterBase):
     """Packed-int4 `QuantizedDenseLM` (params = packed weights). Dense archs
     only, so its state is pure kv. The state lives on the parameters'
     device."""
+
+    supports_quality_probes = True
 
     def __init__(self, qlm: QuantizedDenseLM, packed_params: Params):
         super().__init__(qlm.cfg, packed_params)
@@ -153,10 +159,11 @@ class IntegerModelAdapter(_AdapterBase):
             raise ValueError("integer path serves kv-only state")
         paged = block_table is not None
         caches = cache["kv"] if paged else cache
-        logits, _ = self.qlm.forward_chunk(params, tokens, caches, index,
-                                           block_table, seq_lengths,
-                                           probe=probe)
-        return logits, cache
+        out = self.qlm.forward_chunk(params, tokens, caches, index,
+                                     block_table, seq_lengths, probe=probe)
+        # the caches were updated in place: hand the engine's tree back, and
+        # with probe=True the per-layer stats after it
+        return (out[0], cache, *out[2:])
 
 
 def as_servable(model, params: Params) -> ServableModel:

@@ -29,10 +29,17 @@ its stream.
 The page pool is updated in place by the model's forward; the engine keeps
 one reference to it (`self.kv.state`).
 
+Telemetry: every counter lives in a `MetricsRegistry` whose snapshot carries
+the reference's whole taxonomy (`serve.telemetry.schema`); the counters of
+features not ported yet stay at 0, as the reference's do when those features
+are off. A `Tracer` records request lifecycles and each forward's wall time
+(ending in a device synchronise); `QualityProbes` runs the probe variant of
+every K-th decode forward. Both are off by default and change no token or
+logit.
+
 Not ported yet (they raise `NotImplementedError`): optimistic admission with
 preemption and replay, cancel / deadlines / drain, fault injection, the
-prefix cache and the host swap tier (ROADMAP Queue A5); tracing and quality
-probes (Queue A6).
+prefix cache and the host swap tier (ROADMAP Queue A5).
 """
 from __future__ import annotations
 
@@ -45,6 +52,10 @@ import torch
 
 from ...kernels import ops as kops
 from ..telemetry.metrics import MetricsRegistry
+from ..telemetry.quality import QualityProbes
+from ..telemetry.schema import (REQUIRED_COUNTERS, REQUIRED_GAUGES,
+                                REQUIRED_HISTOGRAMS)
+from ..telemetry.trace import PID_REQUESTS, Tracer
 from .adapter import ServableModel
 from .pages import PagedKVCache, pages_for
 
@@ -172,8 +183,6 @@ _UNPORTED = {
     "prefix_cache": "the radix prefix cache is ROADMAP Queue A5",
     "swap_host_mb": "the host swap tier is ROADMAP Queue A5",
     "faults": "fault injection is ROADMAP Queue A5",
-    "tracer": "tracing is ROADMAP Queue A6",
-    "quality_probes": "quality probes are ROADMAP Queue A6",
     "deadline_s": "request deadlines are ROADMAP Queue A5",
 }
 
@@ -187,7 +196,9 @@ class ServeEngine:
                  prefill_chunk: int = 8, token_budget: int | None = None,
                  seed: int = 0, record_logits: bool = False,
                  admission: str = "reserve",
-                 max_context: int | None = None, **unported):
+                 max_context: int | None = None,
+                 tracer: Tracer | None = None,
+                 quality_probes: QualityProbes | None = None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -224,7 +235,17 @@ class ServeEngine:
         self._committed: dict[int, int] = {}   # rid -> committed page count
         self._committed_total = 0              # == sum(_committed.values())
         self._terminal: list[EngineRequest] = []   # drained by step()
+        # telemetry: tracer and quality probes are opt-in and bit-path-
+        # neutral
         self.metrics = MetricsRegistry()
+        self.tracer = tracer
+        self.quality_probes = quality_probes
+        if quality_probes is not None:
+            if not getattr(adapter, "supports_quality_probes", False):
+                raise ValueError(
+                    f"adapter {adapter.name!r} does not support quality "
+                    "probes (integer path only)")
+            quality_probes.bind(self.metrics)
         self._register_metrics()
 
     # ------------------------------------------------------------------
@@ -270,6 +291,11 @@ class ServeEngine:
         req.t_submit = time.perf_counter()
         self.queue.append(req)
         self.metrics.counter("engine.requests.submitted").inc()
+        if self.tracer:
+            self.tracer.begin("request", pid=PID_REQUESTS, tid=req.rid,
+                              args={"prompt_tokens": len(req.prompt),
+                                    "max_new": req.sampling.max_new})
+            self.tracer.begin("queued", pid=PID_REQUESTS, tid=req.rid)
 
     def _pages_needed(self, req: EngineRequest) -> int:
         """KV pages admission requires: the worst case, prompt + max_new."""
@@ -293,6 +319,9 @@ class ServeEngine:
             req.t_admit = time.perf_counter()
             self.metrics.histogram("engine.admission.wait_s").observe(
                 max(req.t_admit - req.t_submit, 0.0))
+            if self.tracer:
+                self.tracer.end("queued", pid=PID_REQUESTS, tid=req.rid)
+                self.tracer.begin("prefill", pid=PID_REQUESTS, tid=req.rid)
 
     def _release(self, req: EngineRequest):
         """Return an admitted request's pages and its commitment."""
@@ -308,16 +337,26 @@ class ServeEngine:
         if req.t_submit is not None:
             m.histogram("engine.request.e2e_s").observe(
                 max(time.perf_counter() - req.t_submit, 0.0))
+        if self.tracer:
+            self.tracer.end("decode", pid=PID_REQUESTS, tid=req.rid)
+            self.tracer.end("request", pid=PID_REQUESTS, tid=req.rid,
+                            args={"generated": len(req.generated),
+                                  "stop_hit": req.stop_hit})
 
     def _fail(self, req: EngineRequest, reason: str):
         """Terminate one active request as `failed`: pages scrubbed and
         released, books rebalanced, returned from the current `step()`."""
-        (self.prefilling if req in self.prefilling
-         else self.decoding).remove(req)
+        phase = "prefill" if req in self.prefilling else "decode"
+        (self.prefilling if phase == "prefill" else self.decoding).remove(req)
         self._release(req)
         req.failed = reason
         self.metrics.counter("engine.requests.poisoned").inc()
         self.metrics.counter("engine.requests.failed").inc()
+        if self.tracer:
+            self.tracer.end(phase, pid=PID_REQUESTS, tid=req.rid)
+            self.tracer.end("request", pid=PID_REQUESTS, tid=req.rid,
+                            args={"outcome": "failed",
+                                  "generated": len(req.generated)})
         self._terminal.append(req)
 
     def cancel(self, rid: int):
@@ -349,10 +388,16 @@ class ServeEngine:
         assert alloc.n_free + alloc.in_use == alloc.capacity
 
     def _ensure(self, rid: int, n_tokens: int):
-        """Grow `rid`'s table to cover `n_tokens` positions. Under
-        `"reserve"` the worst-case commitment always covers the table, so
-        this can never exhaust the pool."""
+        """Grow `rid`'s table to cover `n_tokens` positions, with an instant
+        trace event when the growth allocated pages. Under `"reserve"` the
+        worst-case commitment always covers the table, so this can never
+        exhaust the pool."""
+        before = self.kv.allocator.n_free
         self.kv.ensure(rid, n_tokens)
+        got = before - self.kv.allocator.n_free
+        if got and self.tracer:
+            self.tracer.instant("alloc_pages", pid=PID_REQUESTS, tid=rid,
+                                args={"pages": got})
 
     # -- counter views (the registry owns the numbers) ------------------
 
@@ -447,10 +492,25 @@ class ServeEngine:
         # also each sampled token's stream position
         lens = torch.tensor(new_lens + [0] * pad, dtype=torch.int32,
                             device=dev)
+        probe = (self.quality_probes is not None
+                 and self.quality_probes.should_probe())
         m.histogram("engine.decode.batch_occupancy").observe(
             len(batch) / self.max_seqs)
-        logits, self.kv.state = self.adapter.forward_chunk(
-            self.adapter.params, tokens, self.kv.state, fill, bt, lens)
+        tr = self.tracer
+        ts0 = tr.ts() if tr else 0.0
+        args = (self.adapter.params, tokens, self.kv.state, fill, bt, lens)
+        if probe:
+            logits, self.kv.state, stats = self.adapter.forward_chunk(
+                *args, probe=True)
+        else:
+            (logits, self.kv.state), stats = \
+                self.adapter.forward_chunk(*args), None
+        if tr:
+            self._sync()
+            tr.complete("dispatch.decode", ts0, tr.ts() - ts0,
+                        args={"rows": len(batch), "probe": probe})
+        if stats is not None:
+            self.quality_probes.record(stats)
         lg = logits[:, 0].to(torch.float32)
         toks, mx = self._sample(lg, batch, [r.rid for r in batch] + [0] * pad,
                                 new_lens + [0] * pad)
@@ -512,8 +572,15 @@ class ServeEngine:
         # the true cached length after this chunk: trims the kernel's walk
         # to the live pages, and is the sampled token's stream position
         lens = torch.tensor([start + real], dtype=torch.int32, device=dev)
+        tr = self.tracer
+        ts0 = tr.ts() if tr else 0.0
         logits, self.kv.state = self.adapter.forward_chunk(
             self.adapter.params, tokens, self.kv.state, start, bt, lens)
+        if tr:
+            self._sync()
+            tr.complete("dispatch.prefill", ts0, tr.ts() - ts0,
+                        args={"rid": req.rid, "tokens": real,
+                              "padded": padded})
         lg = logits[:, real - 1].to(torch.float32)
         toks, mx = self._sample(lg, [req], [req.rid], [start + real])
         if not np.isfinite(mx[0]):
@@ -538,6 +605,9 @@ class ServeEngine:
             if self.record_logits:
                 req.step_logits.append(lg[0].cpu().numpy())
             m.counter("engine.generated_tokens").inc()
+            if tr:
+                tr.end("prefill", pid=PID_REQUESTS, tid=req.rid)
+                tr.begin("decode", pid=PID_REQUESTS, tid=req.rid)
             self._check_stop(req)
             if req.done:
                 self._finish(req)
@@ -545,6 +615,12 @@ class ServeEngine:
             else:
                 self.decoding.append(req)
         return real, finished
+
+    def _sync(self):
+        """Wait for the device's queued work: a traced dispatch's wall time
+        then covers its device time."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     # driver
@@ -596,22 +672,18 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def _register_metrics(self):
-        """Pre-create every instrument so a snapshot has all its names even
-        before any traffic."""
+        """Pre-create every name of the taxonomy (`serve.telemetry.schema`)
+        so a snapshot is schema-complete even before any traffic. The
+        instruments of features not ported yet (preemption and replay,
+        cancel, deadlines, dispatch faults, the prefix cache, the swap tier,
+        stream callbacks) stay at 0, as the reference's do with those
+        features off."""
         m = self.metrics
-        for name in ("engine.steps", "engine.prefill_tokens",
-                     "engine.decode_tokens", "engine.generated_tokens",
-                     "engine.pages_walked", "engine.pages_walked_dense",
-                     "engine.requests.submitted", "engine.requests.admitted",
-                     "engine.requests.finished", "engine.requests.stop_hits",
-                     "engine.requests.failed", "engine.requests.poisoned",
-                     "engine.admission.blocked"):
+        for name in REQUIRED_COUNTERS:
             m.counter(name)
-        for name in ("engine.step.wall_s", "engine.step.budget_utilization",
-                     "engine.decode.batch_occupancy",
-                     "engine.decode.token_latency_s",
-                     "engine.admission.wait_s", "engine.request.e2e_s",
-                     "engine.prefill.chunk_tokens"):
+        for name in REQUIRED_GAUGES:
+            m.gauge(name)
+        for name in REQUIRED_HISTOGRAMS:
             m.histogram(name)
         self._update_gauges()
 
@@ -631,14 +703,31 @@ class ServeEngine:
         m.gauge("engine.queue.depth").set(len(self.queue))
         m.gauge("engine.batch.decoding").set(len(self.decoding))
         m.gauge("engine.batch.prefilling").set(len(self.prefilling))
+        m.gauge("engine.pages.shared").set(alloc.n_shared)
 
     def metrics_snapshot(self) -> dict:
-        """Registry export: refresh the level gauges, mirror the kernel
-        layer's per-entry-point dispatch tallies as
-        `kernels.dispatch.<entry>.<kernels|plain>`, and snapshot."""
+        """Schema-versioned registry export (the shape
+        `serve.telemetry.schema.validate_snapshot` checks): refresh the
+        level gauges, mirror the kernel layer's per-entry-point dispatch
+        tallies as `kernels.dispatch.<entry>.<kernels|ref>`, and
+        snapshot."""
         self._update_gauges()
         for (entry, path), n in kops.dispatch_counts().items():
             c = self.metrics.counter(f"kernels.dispatch.{entry}.{path}")
             if n > c.value:
                 c.value = n   # mirror of an external monotonic count
         return self.metrics.snapshot()
+
+    def reset_metrics(self):
+        """Start a fresh measurement window: zero the registry in place
+        (names and held instrument references survive), restart the
+        allocator high-water mark and the scrub total, and clear the kernel
+        dispatch tallies and the probe sampling phase. Engine *state*
+        (queues, caches, seed) is untouched."""
+        self.metrics.reset()
+        self.kv.allocator.reset_peak()
+        self.kv.pages_scrubbed = 0
+        kops.reset_dispatch_counts()
+        if self.quality_probes is not None:
+            self.quality_probes.reset()
+        self._update_gauges()

@@ -24,6 +24,10 @@ new KV rows are scattered straight into their pool pages and attention walks
 the table through `ops.paged_attention`, which dequantises and re-rotates K
 inside the kernel.
 
+`forward_chunk(probe=True)` also returns the per-layer rotation-quality
+stats of `serve.telemetry.quality` at the fused rotate+quantize site; the
+logits are equal bit for bit with and without it.
+
 **Caches are updated in place.** The cache (or page pool) handed to
 `forward_chunk` is the one returned; the JAX counterpart is functional and
 returns new arrays. Layer leaves of parameters and caches are stacked
@@ -41,6 +45,7 @@ from ..kernels import ops as kops
 from ..kernels.hadamard_quant import _recip_f32
 from ..models import layers as L
 from ..models.config import ArchConfig
+from .telemetry.quality import activation_probe_stats
 
 Params = dict[str, Any]
 
@@ -233,10 +238,7 @@ class QuantizedDenseLM:
 
     def _block(self, x, blk, cache, index, block_table=None,
                seq_lengths=None, probe=False):
-        if probe:
-            raise NotImplementedError(
-                "rotation-quality probes need the block_hadamard kernel "
-                "(ROADMAP Queue B4 / A6)")
+        """One layer -> (x, cache, probe stats or None)."""
         cfg = self.cfg
         spec = self.attn_spec
         b, s, _ = x.shape
@@ -316,19 +318,38 @@ class QuantizedDenseLM:
         else:
             hid = F.gelu(_int_matmul(quant, blk["ffn"]["w_up"], hx.dtype),
                          approximate="tanh")
-        down, _ = _rot_int_linear(hid, blk["ffn"]["w_down"], self.block_size)
-        return x + down, cache
+        down, act_codes = _rot_int_linear(hid, blk["ffn"]["w_down"],
+                                          self.block_size)
+        x = x + down
+        stats = None
+        if probe:
+            # rotation-quality probe on the fused rotate+quantize site: it
+            # reads the main path's values and writes none of them (the
+            # rotated activation is recomputed - the fused kernel never
+            # writes it out). The stats pool over every row of the chunk,
+            # padding rows included, as in the reference.
+            hid_p = hid.to(torch.float32)
+            post = kops.block_hadamard(hid_p, self.block_size)
+            stats = activation_probe_stats(hid_p, post, act_codes, bits=4,
+                                           block_size=self.block_size)
+        return x, cache, stats
 
     def _forward(self, params: Params, tokens: torch.Tensor, cache: Params,
                  index, block_table=None, seq_lengths=None, probe=False):
         cfg = self.cfg
         x = params["embed"][tokens.to(torch.int64)].to(self.compute_dtype)
+        per_layer = []
         for l in range(cfg.n_layers):
-            x, _ = self._block(x, _layer(params["layers"], l),
-                               _layer(cache, l), index, block_table,
-                               seq_lengths, probe)
+            x, _, stats = self._block(x, _layer(params["layers"], l),
+                                      _layer(cache, l), index, block_table,
+                                      seq_lengths, probe)
+            per_layer.append(stats)
         x = L.apply_norm(x, params["final_norm"], cfg.norm)
         logits = x @ params["lm_head"].to(x.dtype)
+        if probe:
+            # name -> [n_layers] tensor, still on the device
+            return logits, cache, {k: torch.stack([s[k] for s in per_layer])
+                                   for k in per_layer[0]}
         return logits, cache
 
     @torch.no_grad()
@@ -344,7 +365,10 @@ class QuantizedDenseLM:
         the chunk, attending to everything already cached). With
         `block_table` [B, P] the cache is the engine's page pool and
         attention runs block-table-native; `seq_lengths` [B] feed the paged
-        kernel's ragged early exit."""
+        kernel's ragged early exit. `probe=True` also returns the per-layer
+        rotation-quality stats (name -> [n_layers] tensor, see
+        `serve.telemetry.quality`); the logits are equal bit for bit either
+        way."""
         return self._forward(params, tokens, cache, index, block_table,
                              seq_lengths, probe)
 

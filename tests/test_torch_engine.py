@@ -186,7 +186,7 @@ def test_engine_serves_and_matches_dense_stepwise_decode(served, kv_bits):
     assert engine.n_decode_tokens == 6 * 4
     snap = engine.metrics_snapshot()
     assert snap["counters"]["engine.requests.finished"] == 6
-    assert snap["counters"]["kernels.dispatch.paged_attention.plain"] > 0
+    assert snap["counters"]["kernels.dispatch.paged_attention.ref"] > 0
     assert snap["gauges"]["engine.pages.in_use"] == 0
     assert engine.pages_walked <= engine.pages_walked_dense
     for rid, p in enumerate(ps):
@@ -250,9 +250,7 @@ def test_submit_validation_and_unported_options(served):
     for kw, queue in ((dict(admission="optimistic"), "A5"),
                       (dict(prefix_cache=True), "A5"),
                       (dict(swap_host_mb=1.0), "A5"),
-                      (dict(faults=object()), "A5"),
-                      (dict(tracer=object()), "A6"),
-                      (dict(quality_probes=object()), "A6")):
+                      (dict(faults=object()), "A5")):
         with pytest.raises(NotImplementedError, match=queue):
             make_engine(served, **kw)
     with pytest.raises(ValueError):

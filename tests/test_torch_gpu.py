@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import block_hadamard as BH
 from repro_torch.kernels import hadamard_quant as HQ
 from repro_torch.kernels import int4_matmul as I4
 from repro_torch.kernels import ops as kops
@@ -103,6 +104,28 @@ def test_paged_attention_kernel(dev, fmt, s, lens, n_cols, g, dh):
     assert PA.LAUNCHES["paged_attention"] > 0
 
 
-def test_block_hadamard_raises_on_the_card(dev):
-    with pytest.raises(NotImplementedError):
-        kops.block_hadamard(torch.zeros(2, 64, device=dev), 16)
+@pytest.mark.parametrize("shape,b", [((4, 1, 8192), 16), ((37, 2048), 1),
+                                     ((5, 384), 12), ((3, 19200), 64),
+                                     ((9, 2048), 2048), ((2, 3, 768), 768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_hadamard_kernel(dev, shape, b, dtype):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3)
+    x[..., ::29] *= 20.0
+    x = x.to(dev).to(dtype)
+    before = BH.LAUNCHES["block_hadamard"]
+    y = kops.block_hadamard(x, b)
+    assert BH.LAUNCHES["block_hadamard"] == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    want = BH.block_hadamard_plain(x, b)
+    # a butterfly (or a b-wide dot product) against a dense product: the
+    # same f32 sums in another order, within 2e-5 of max|y|; a bf16 output
+    # is that f32 value rounded once, so one bf16 ulp (2^-7 relative) more
+    atol = 2e-5 * float(want.float().abs().max())
+    rtol = 0 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), want.float(), rtol=rtol, atol=atol)
+    poisoned = x.clone()
+    poisoned[0, ..., 0] = float("nan")
+    out = kops.block_hadamard(poisoned, b)
+    assert bool(out[0, ..., :b].isnan().all())
+    assert bool(out[1:].isfinite().all())

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import block_hadamard as jbh
 from repro.kernels import ops as jops
 from repro.kernels import paged_attention as jpa
 from repro.kernels import ref as jref
@@ -387,6 +388,8 @@ def test_rope_frequencies_are_the_reference_literal(dh, theta):
 
 
 def test_block_hadamard_is_plain_only_and_dispatch_counts():
+    """On the CPU every entry takes its plain version, tallied under the
+    reference's path tag `ref`; no kernel launches."""
     x = torch.randn(3, 64)
     tops.reset_dispatch_counts()
     y = tops.block_hadamard(x, 16)
@@ -398,12 +401,46 @@ def test_block_hadamard_is_plain_only_and_dispatch_counts():
         tops.quantize_act(x)
     assert tops.kernels_enabled()
     counts = tops.dispatch_counts()
-    assert counts[("block_hadamard", "plain")] == 1
-    assert counts[("quantize_act", "plain")] == 2
-    assert all(path == "plain" for _, path in counts)      # CPU tensors
+    assert counts[("block_hadamard", "ref")] == 1
+    assert counts[("quantize_act", "ref")] == 2
+    assert all(path == "ref" for _, path in counts)        # CPU tensors
     assert set(tops.kernel_launch_counts()) == {
-        "hadamard_quant", "int4_matmul", "paged_attention", "combine_partials"}
+        "block_hadamard", "hadamard_quant", "int4_matmul", "paged_attention",
+        "combine_partials"}
     assert all(v == 0 for v in tops.kernel_launch_counts().values())
+
+
+def _bf16_ulp(a):
+    """One bf16 unit in the last place of each entry of `a` (f32)."""
+    e = np.floor(np.log2(np.maximum(np.abs(a), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,d", [(1, 256), (2, 256), (16, 256), (12, 384),
+                                 (128, 256), (256, 256)])       # b = D last
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_hadamard_matches_jax_kernel(b, d, dtype):
+    """The port's `ops.block_hadamard` (plain on the CPU) against the JAX
+    interpret-mode kernel, with leading dims and row counts that are no
+    multiple of the kernel's row tile. Both sides are dense products in f32
+    summed in other orders: f32 output agrees within 1e-5 * max|y|, bf16
+    output (the f32 result rounded once) within one bf16 ulp."""
+    rng = np.random.default_rng(b)
+    for shape in ((2, 5, d), (7, d)):
+        x = (rng.standard_normal(shape) * 3).astype(np.float32)
+        x[..., ::29] *= 20.0                                  # outlier channels
+        xj = jnp.asarray(x, dtype)
+        want = np.asarray(jbh.block_hadamard(xj, b).astype(jnp.float32))
+        xt = T(np.array(xj.astype(jnp.float32))).to(getattr(torch, dtype))
+        got = tops.block_hadamard(xt, b)
+        assert got.dtype == xt.dtype and tuple(got.shape) == shape
+        got = N(got.float())
+        if dtype == "float32":
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+        else:
+            assert (np.abs(got - want) <= _bf16_ulp(want)).all()
+    with pytest.raises(ValueError, match="not divisible"):
+        tops.block_hadamard(T(x[:, :d - 1].copy()), b if b > 1 else 2)
 
 
 def test_module_wrappers_launch_or_raise():
@@ -426,4 +463,9 @@ def test_module_wrappers_launch_or_raise():
     with pytest.raises(RuntimeError, match="CUDA"):
         tpa.combine_partials(torch.zeros(1, 2, 2, 1), torch.zeros(1, 2, 2, 1),
                              torch.zeros(1, 2, 2, 1, 8))
+    from repro_torch.kernels import block_hadamard as tbh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbh.block_hadamard(x, 16)
+    with pytest.raises(ValueError, match="not divisible"):
+        tbh.block_hadamard(x, 12)
     assert all(v == 0 for v in tops.kernel_launch_counts().values())

@@ -182,7 +182,7 @@ def test_block_layer_by_layer(kv_bits):
             want_x, want_cache = jblock(x, _layer(packed["layers"], l),
                                         cache_l, jindex)
             tcache = interop.cache_from_jax(to_numpy_tree(cache_l), "cpu")
-            got_x, got_cache = tm._block(
+            got_x, got_cache, _ = tm._block(
                 torch.from_numpy(np.array(x)), tq._layer(tp["layers"], l),
                 tcache, tindex)
             assert_close_max(N(got_x), want_x)
@@ -256,7 +256,7 @@ def test_bfloat16_compute_block_by_block(kv_bits):
         cache_l = _layer(jcache, l)
         want_x, want_cache = jblock(x, _layer(packed["layers"], l), cache_l,
                                     jnp.asarray(0, jnp.int32))
-        got_x, got_cache = tm._block(
+        got_x, got_cache, _ = tm._block(
             interop.tensor_from_numpy(np.asarray(x), "cpu"),
             tq._layer(tp["layers"], l),
             interop.cache_from_jax(to_numpy_tree(cache_l), "cpu"), 0)
@@ -311,7 +311,5 @@ def test_paged_forward_equals_dense_forward_inside_the_port(kv_bits):
                                 torch.tensor([9, 9], dtype=torch.int32))
     assert_close_max(N(got_d), N(want_d))
     assert pages_for(9, page) == 3
-    with pytest.raises(NotImplementedError):
-        tm.forward_chunk(tp, nxt, pool, fill, bt, probe=True)
     with pytest.raises(ValueError):
         tm.forward_chunk(tp, toks, dense, fill)     # per-slot index, S > 1

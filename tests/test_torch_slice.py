@@ -43,7 +43,7 @@ def test_launcher_serves_on_the_cpu(kv_bits, capsys, tmp_path):
     counts = result["snapshot"]["counters"]
     for entry in ("quantize_act", "hadamard_quant", "int4_matmul",
                   "paged_attention"):
-        assert counts[f"kernels.dispatch.{entry}.plain"] > 0
+        assert counts[f"kernels.dispatch.{entry}.ref"] > 0
         assert f"kernels.dispatch.{entry}.kernels" not in counts
 
 
@@ -67,8 +67,6 @@ def test_launcher_is_seeded(capsys):
     (["--integer-path", "--swap-host-mb", "4"], "A5"),
     (["--integer-path", "--drain-after", "3"], "A5"),
     (["--integer-path", "--admission", "optimistic"], "A5"),
-    (["--integer-path", "--trace", "t.json"], "A6"),
-    (["--integer-path", "--probe-every", "2"], "A6"),
 ])
 def test_launcher_names_the_queue_item_of_what_it_does_not_serve(extra, queue):
     with pytest.raises(SystemExit) as e:
