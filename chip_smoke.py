@@ -21,6 +21,8 @@ state. Phases print one JSON line each:
              the probed decode step against the unprobed one
     profile  (only with --profile) where a decode step's time goes, without
              and with the probe
+    sweep    (only with --sweep) the attention kernel under other launch
+             plans: block rows, warps per block, keys per tile
 
 then the card's `name, power.limit`, then one `{"kernels": [...]}` object
 with the per-kernel record of this run, then as the last line
@@ -28,7 +30,8 @@ with the per-kernel record of this run, then as the last line
 non-zero exit code; without a CUDA device it exits at once.
 
 Bounds use the published peaks of one H100 SXM: 3.35 TB/s of device memory,
-1979 TOP/s int8, 67 TFLOP/s float32 outside the tensor cores.
+1979 TOP/s int8, 495 TFLOP/s TF32 on the tensor cores (attention's
+products), 67 TFLOP/s float32 outside the tensor cores.
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ from repro_torch.kernels import paged_attention as PA  # noqa: E402
 DEV = torch.device("cuda", 0)
 PEAK_BYTES_S = 3.35e12
 PEAK_INT8_OPS_S = 1979e12
+PEAK_TF32_FLOPS_S = 495e12
 PEAK_F32_FLOPS_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
@@ -304,8 +308,9 @@ def check_attention(rng, label, fmt, b, s, lens, n_cols, theta):
     zero_rows_ok = all(bool((out[i] == 0).all()) for i, ln in enumerate(lens) if ln == 0)
     finite = bool(torch.isfinite(out).all())
     # Pass rule: 2e-5 absolute in f32 - the kernel sums the head dimension
-    # and the page rows in another order than the plain einsum and uses
-    # fused multiply-adds; both are f32 throughout.
+    # and the keys in another order than the plain einsum, on the tensor
+    # cores in the 3xTF32 split (f32 accuracy), and updates the softmax per
+    # tile of pages instead of per page; both are f32 throughout.
     ok = err <= 2e-5 and zero_rows_ok and finite
     fns = [lambda l=l: PA.paged_attention(q, layer(l), bt, qpos, lens_t, **kw)
            for l in range(n_layers)]
@@ -334,10 +339,17 @@ def check_attention(rng, label, fmt, b, s, lens, n_cols, theta):
     nbytes = sum(lens) * per_row + q.numel() * 2 + out.numel() * 4 + bt.numel() * 4
     live_pairs = int(torch.minimum(qpos + 1, lens_t[:, None]).clamp_min(0).sum())
     flops = 4.0 * h * dh * live_pairs
-    bms, by = bound(nbytes, flops, PEAK_F32_FLOPS_S)
+    bms, by = bound(nbytes, flops, PEAK_TF32_FLOPS_S)
+    plan = PA.attention_plan(h // kh, s, dh, t, pool["k"].dtype,
+                             group=dh if bits else None)
     return {"shape": f"{label}: q[{b},{s},{h},{dh}] bf16, {fmt} pages T={t}, "
                      f"lens={lens}, table {n_cols} cols",
             "ok": ok, "max_abs_err": err, "used_combine": used_combine,
+            "plan": {"q_rows": plan.q_rows, "warps": plan.warps,
+                     "key_warps": plan.key_warps, "threads": plan.threads,
+                     "pages_per_tile": plan.pages_per_tile,
+                     "smem_bytes": plan.smem_bytes},
+            "library_over_ms": lib / ms if lib is not None else None,
             "tolerance": "2e-5 absolute (f32, different summation order)",
             "ms": ms, "call_ms": call_ms, "plain_ms": pms, "bound_ms": bms,
             "bound_by": by, "library_ms": lib,
@@ -450,6 +462,14 @@ def phase_kernels():
     for fmt in ("int4", "int8", "bf16"):
         cases["paged_attention"].append(check_attention(
             rng, "prefill", fmt, 1, 32, [128], 8, theta))
+    # the serve path's own shapes: a 32-token prefill chunk of 4 sequences
+    # over ~170 cached tokens, and a decode step over a 32-column table (the
+    # full 8 splits of 4 columns)
+    cases["paged_attention"].append(check_attention(
+        rng, "prefill chunk", "int4", 4, 32, [202, 190, 171, 185], 13, theta))
+    cases["paged_attention"].append(check_attention(
+        rng, "decode, 32-column table", "int4", 4, 1, [500, 0, 311, 129], 32,
+        theta))
     cases["combine_partials"].append(check_combine(rng, 4, 2, 32, 1, 64))
     cases["combine_partials"].append(check_combine(rng, 4, 8, 32, 1, 64))
     if not cases["paged_attention"][0]["used_combine"]:
@@ -459,6 +479,46 @@ def phase_kernels():
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     return cases
+
+
+def phase_sweep():
+    """The attention kernel under other launch plans (`PLAN_ROWS` block
+    rows; warps per block and keys per tile, set for decode and prefill
+    alike) at the prefill and decode cases. Every plan must still agree with the plain version; the
+    defaults are restored afterwards."""
+    theta = 500000.0
+    prefill = [("prefill", "bf16", 1, 32, [128], 8),
+               ("prefill", "int4", 1, 32, [128], 8),
+               ("prefill chunk", "int4", 4, 32, [202, 190, 171, 185], 13)]
+    decode = [("decode", "int4", 4, 1, [120, 0, 37, 113], 8),
+              ("decode, 32-column table", "int4", 4, 1, [500, 0, 311, 129], 32)]
+    knobs = ("PLAN_ROWS", "PLAN_DECODE", "PLAN_PREFILL")
+    default = tuple(getattr(PA, k) for k in knobs)
+    plans = sorted({(r, w, keys) for r in (16, 32, 64) for w in (4, 8)
+                    for keys in (64, 128)} | {(32, 8, 32)})
+    out = []
+    try:
+        for cases, decoding in ((prefill, False), (decode, True)):
+            for plan in plans:
+                if decoding and plan[0] != default[0]:
+                    continue          # one row per query head at decode
+                rows, warps, keys = plan
+                for k, v in zip(knobs, (rows, (warps, keys), (warps, keys))):
+                    setattr(PA, k, v)
+                for case in cases:
+                    c = check_attention(np.random.default_rng(5), *case, theta)
+                    out.append({"plan_rows": rows, "plan_warps": warps,
+                                "tile_keys": keys, "shape": c["shape"],
+                                "plan": c["plan"], "ok": c["ok"],
+                                "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                                "library_ms": c["library_ms"]})
+    finally:
+        for k, v in zip(knobs, default):
+            setattr(PA, k, v)
+    ok = all(r["ok"] for r in out)
+    emit("sweep", ok=ok, defaults=dict(zip(knobs, default)), runs=out)
+    if not ok:
+        fail("an attention plan disagrees with the plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -868,6 +928,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also break a decode step down with torch.profiler")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time the attention kernel under other plans")
     ap.add_argument("--ptxas", action="store_true",
                     help="print what ptxas reports per kernel (stderr)")
     args = ap.parse_args(argv)
@@ -875,6 +937,8 @@ def main(argv=None):
     smi = phase_device()
     phase_build(args.ptxas)
     cases = phase_kernels()
+    if args.sweep:
+        phase_sweep()
     launches, adapter = phase_serve()
     phase_parity(adapter)
     if args.profile:

@@ -36,7 +36,7 @@ SIGNATURES = {
     "hadamard_quant_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "int4_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "paged_attention_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _P] + [_I] * 12 + [_P],
+                               _P, _P, _P, _P] + [_I] * 18 + [_P],
     "combine_partials_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

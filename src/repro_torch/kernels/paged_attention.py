@@ -11,13 +11,24 @@ and K rotated at the absolute position of each page row, inside the walk.
 
 Bound on an H100: bytes. Each live page row of K and V is read once per
 query group; at decode the queries and outputs are a few kilobytes beside
-them. Design (`csrc/paged_attention.cu`): one thread block per (batch row,
-KV head, query block, split) holds the `G * q_block` query rows of the
-group and walks only its split's live table columns - page ids are read
-from the block table inside the loop and nothing past
+them, and even a 32-token prefill chunk's products are far below the TF32
+tensor cores' rate. Design (`csrc/paged_attention.cu`): one thread block per
+(batch row, KV head, query block, split) holds `q_rows` query positions of
+the G heads of its KV head and walks only its split's live table columns -
+page ids are read from the block table and nothing past
 `ceil(len / page_size)` is touched, so the bytes moved are the bytes the
-data needs. Decode steps cut the walk into fixed-width splits (4 table
-columns, at most 8 splits) for parallelism over the context; their
+data needs. The walk goes in tiles of several pages (64 keys at decode, 128
+at prefill): `cp.async` copies stage a tile's raw K/V rows (and scale/zero
+rows) into a two-slot ring while the previous tile is computed, one pass
+dequantises, rotates or widens the tile to f32, and each warp takes 16
+query rows and a share of the tile's keys, whose Q·Kᵀ and P·V products run
+on the tensor cores (`mma.sync` m16n8k8 TF32 in the 3xTF32 split, which
+keeps f32 accuracy) with the online softmax on the fragments; the warps
+sharing rows merge their states once at the end. `attention_plan` decides
+rows per block, warps, pages per tile and shared-memory bytes; the C launch
+checks the plan. Decode steps cut the
+walk into fixed-width splits (4 table columns, at most 8 splits) for
+parallelism over the context - at T = 16 one split is one tile - and their
 `(m, l, acc)` partials are merged by the small combine kernel, which is
 bound by its launch.
 
@@ -28,6 +39,7 @@ plain walk visits the same columns in the same split order.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -39,8 +51,8 @@ from . import _build
 __all__ = ["paged_attention", "paged_attention_plain", "combine_partials",
            "combine_partials_plain", "resolve_tiling", "used_page_counts",
            "rope_frequencies", "dequant_page", "rope_page", "page_update",
-           "finalize", "SPLIT_PAGE_COLS", "MAX_KV_SPLITS", "MASK_VALUE",
-           "LAUNCHES"]
+           "finalize", "attention_plan", "AttentionPlan", "SPLIT_PAGE_COLS",
+           "MAX_KV_SPLITS", "MASK_VALUE", "LAUNCHES"]
 
 LAUNCHES = {"paged_attention": 0, "combine_partials": 0}
 
@@ -190,6 +202,107 @@ def used_page_counts(q_positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Launch plan of the kernel (how the work is cut; it changes no number)
+# ---------------------------------------------------------------------------
+
+# What the plan aims at, from `chip_smoke.py --sweep` on an H100 (PERF.md):
+# more query rows per block cut the dequant + RoPE pass that every query
+# block repeats; at prefill more warps per block shorten each warp's product
+# chain and longer tiles halve the round trips, while at decode (a split is 4
+# pages) neither pays.
+PLAN_ROWS = 32              # block rows (G * q_rows)
+PLAN_DECODE = (4, 64)       # (warps per block, keys per tile) at S == 1
+PLAN_PREFILL = (8, 128)     # the same at S > 1
+MAX_HEAD_DIM = 128      # the kernel holds a warp's O rows in registers
+MAX_ROW_WARPS = 8       # 256 threads per block
+SMEM_LIMIT = 232_448    # shared memory one block may use on an H100
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    q_rows: int           # query positions per block; G * q_rows block
+                          # rows, row r: head r // q_rows
+    warps: int            # row warps: 16 rows each
+    key_warps: int        # warps sharing one row warp's rows, each taking
+                          # every key_warps-th 8-key n-tile of a tile
+    threads: int          # all copy and convert the tiles
+    pages_per_tile: int
+    smem_bytes: int
+
+
+def _al16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _smem_bytes(dh: int, t: int, ppt: int, warps: int, key_warps: int,
+                esize: int, ng: int) -> int:
+    """Shared memory of one block; the same layout as `make_layout` in
+    `csrc/paged_attention.cu`, which refuses a plan whose count differs."""
+    keys = ppt * t
+    kpad = -(-keys // 8) * 8
+    ks = dh + 4                                  # f32 K tile and Q rows
+    vs = dh + (8 if (dh // 8) % 2 == 0 else 0)   # f32 V tile
+    ps = min(kpad, 64) + 4                       # per-warp P scratch
+    rows_pad = 16 * warps
+    cwarps = warps * key_warps
+    stage = 2 * _al16(keys * dh * esize) + 4 * _al16(keys * ng * 4)
+    tiles = 2 * stage + _al16(kpad * ks * 4) + _al16(kpad * vs * 4)
+    merge = _al16(cwarps * 16 * ks * 4)          # reuses the tile area
+    return (max(tiles, merge) + _al16(rows_pad * ks * 4)
+            + _al16(cwarps * 16 * ps * 4) + _al16(dh // 2 * 4)
+            + _al16(rows_pad * 4) + 16)
+
+
+def attention_plan(g: int, s: int, dh: int, t: int, page_dtype: torch.dtype,
+                   *, group: int | None = None) -> AttentionPlan:
+    """How `paged_attention`'s kernel cuts the work for G query heads per KV
+    head, S query positions, head dim `dh`, page size `t` and pages of
+    `page_dtype` (int8 means code pages with scale/zero per `group`).
+
+    Query positions per block: as many as keep G * q_rows near
+    `PLAN_ROWS`; row warps of 16 rows, each joined by key warps up to the
+    warps per block of `PLAN_DECODE` (S = 1) or `PLAN_PREFILL` (at most one
+    per 8-key n-tile of a tile); pages per tile: their keys per tile // t
+    (at least 1), fewer while the block's shared memory would exceed an
+    H100's 232,448 bytes. Raises ValueError where the kernel cannot run: a
+    head dim that is not a multiple of 8 (the products take 8 at a time) or
+    above 128, more than 128 rows for one query position, or a tile of one
+    page that does not fit."""
+    if dh % 8 or not 0 < dh <= MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention: head_dim {dh} must be a multiple "
+                         f"of 8 and at most {MAX_HEAD_DIM}")
+    if g > 16 * MAX_ROW_WARPS:
+        raise ValueError(f"paged_attention: {g} query heads per KV head; the "
+                         f"kernel takes at most {16 * MAX_ROW_WARPS}")
+    q_rows = min(s, max(1, PLAN_ROWS // g))
+    while g * q_rows > 16 * MAX_ROW_WARPS:
+        q_rows -= 1
+    warps = -(-(g * q_rows) // 16)
+    quant = page_dtype == torch.int8
+    ng = dh // (group or dh) if quant else 0
+    esize = torch.empty((), dtype=page_dtype).element_size()
+    target_warps, tile_keys = PLAN_DECODE if s == 1 else PLAN_PREFILL
+    ppt = max(1, tile_keys // t)
+
+    def key_warps(ppt):
+        return max(1, min(target_warps // warps, -(-(ppt * t) // 8)))
+
+    def smem(ppt):
+        return _smem_bytes(dh, t, ppt, warps, key_warps(ppt), esize, ng)
+
+    while ppt > 1 and smem(ppt) > SMEM_LIMIT:
+        ppt -= 1
+    if smem(ppt) > SMEM_LIMIT:
+        raise ValueError(f"paged_attention: one page of {t} rows needs "
+                         f"{smem(ppt)} bytes of shared memory (limit "
+                         f"{SMEM_LIMIT})")
+    kw = key_warps(ppt)
+    return AttentionPlan(q_rows=q_rows, warps=warps, key_warps=kw,
+                         threads=32 * max(4, warps * kw),
+                         pages_per_tile=ppt, smem_bytes=smem(ppt))
+
+
+# ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
@@ -312,12 +425,10 @@ def paged_attention(q: torch.Tensor, kv: dict, block_tables: torch.Tensor,
     seq_lengths [B] optional true context lengths (pages past ceil(len/T)
     are skipped, 0 skips the row). `rope_theta` rotates dequantised K pages
     inside the walk (integer pools store K before RoPE). Returns
-    [B, S, H, Dh] float32.
+    [B, S, H, Dh] float32. The head dim must be a multiple of 8, at most
+    128 (`attention_plan`); the plain version takes any even one.
     """
     dev = q.device
-    if dev.type != "cuda":
-        raise RuntimeError(f"paged_attention launches a CUDA kernel; got a "
-                           f"tensor on {dev} (kernels.ops dispatches)")
     b, s, h, dh = q.shape
     kp, vp = kv["k"], kv["v"]
     t, kh = kp.shape[1], kp.shape[2]
@@ -333,6 +444,11 @@ def paged_attention(q: torch.Tensor, kv: dict, block_tables: torch.Tensor,
         raise ValueError(f"head_dim {dh} not divisible by kv_group {kv_group}")
     q_block, kv_splits, _, split_cols = resolve_tiling(
         s, kh, n_cols, q_block, kv_splits, head_block)
+    plan = attention_plan(h // kh, s, dh, t, kp.dtype,
+                          group=kv_group if quant else None)
+    if dev.type != "cuda":
+        raise RuntimeError(f"paged_attention launches a CUDA kernel; got a "
+                           f"tensor on {dev} (kernels.ops dispatches)")
     aux = [None] * 4
     if quant:
         aux = [kv[n] for n in ("k_scale", "k_zero", "v_scale", "v_zero")]
@@ -370,6 +486,8 @@ def paged_attention(q: torch.Tensor, kv: dict, block_tables: torch.Tensor,
         out.data_ptr(), ptr(m_p), ptr(l_p), ptr(acc_p),
         b, s, h, kh, dh, t, n_cols, q_block, kv_splits, split_cols,
         kv_group if quant else 0, kv_bits if quant else 0,
+        plan.q_rows, plan.warps, plan.key_warps, plan.threads,
+        plan.pages_per_tile, plan.smem_bytes,
         _build.stream_ptr(dev))
     _build.check(code, "paged_attention")
     LAUNCHES["paged_attention"] += 1

@@ -62,46 +62,99 @@ def test_int4_matmul_kernel(dev, m, k, n):
     torch.testing.assert_close(out, want, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("fmt", ["float", "int8", "int4"])
-@pytest.mark.parametrize("s,lens,n_cols", [(1, [50, 0, 17], 8), (8, [24, 8, 13], 4)])
-@pytest.mark.parametrize("g,dh", [(3, 32), (7, 128)])   # the latter needs > 48 KB
-def test_paged_attention_kernel(dev, fmt, s, lens, n_cols, g, dh):
+def _attention_case(dev, fmt, t, s, g, dh, lens, n_cols, kv_splits=None,
+                    q_dtype=torch.float32, group=None, kh=2):
+    """The kernel against its plain version on one seeded case; returns the
+    kernel's output."""
     rng = np.random.default_rng(2)
-    b, kh, t = 3, 2, 8
+    b = len(lens)
     n_pages = 1 + b * n_cols
     shape = (n_pages, t, kh, dh)
-    bits = {"float": None, "int8": 8, "int4": 4}[fmt]
+    bits = {"float": None, "bf16": None, "int8": 8, "int4": 4}[fmt]
+    group = group or dh
     if bits is None:
         kv = {n: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
               for n in ("k", "v")}
+        if fmt == "bf16":
+            kv = {n: a.to(torch.bfloat16) for n, a in kv.items()}
     else:
         kv = {}
         for n in ("k", "v"):
             kv[n] = torch.from_numpy(
                 (rng.integers(0, 2 ** bits, shape) - 2 ** (bits - 1)).astype(np.int8))
             kv[n + "_scale"] = torch.from_numpy(rng.uniform(
-                0.002, 0.2 / 2 ** (bits - 4), shape[:-1] + (1,)).astype(np.float32))
+                0.002, 0.2 / 2 ** (bits - 4), shape[:-1] + (dh // group,)).astype(np.float32))
             kv[n + "_zero"] = torch.from_numpy(np.round(rng.uniform(
-                -(2 ** bits), 0, shape[:-1] + (1,))).astype(np.float32))
+                -(2 ** bits), 0, shape[:-1] + (dh // group,))).astype(np.float32))
     kv = {n: a.to(dev) for n, a in kv.items()}
     perm = rng.permutation(np.arange(1, n_pages))
     bt = np.zeros((b, n_cols), np.int32)
     for i, ln in enumerate(lens):
         bt[i, :-(-ln // t)] = perm[i * n_cols:i * n_cols + -(-ln // t)]
-    q = torch.from_numpy(rng.standard_normal((b, s, kh * g, dh)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, s, kh * g, dh)).astype(np.float32))
+    q = q.to(dev).to(q_dtype)
     qpos = torch.tensor([list(range(max(ln - s, 0), max(ln - s, 0) + s)) for ln in lens],
                         dtype=torch.int32, device=dev)
     args = (q, kv, torch.from_numpy(bt).to(dev), qpos,
             torch.tensor(lens, dtype=torch.int32, device=dev))
     kw = dict(rope_theta=10000.0 if bits else None, kv_bits=bits,
-              kv_group=dh if bits else None)
+              kv_group=group if bits else None, kv_splits=kv_splits)
+    before = PA.LAUNCHES["paged_attention"]
     out = kops.paged_attention(*args, **kw)
+    assert PA.LAUNCHES["paged_attention"] == before + 1
     with kops.use_kernels(False):
         want = kops.paged_attention(*args, **kw)
-    # f32 throughout, other summation order and fused multiply-adds
+    # f32 throughout (3xTF32 products keep f32 accuracy), other summation
+    # order, the softmax updated per tile instead of per page
     torch.testing.assert_close(out, want, rtol=0, atol=2e-5)
-    assert bool((out[1] == 0).all()) if lens[1] == 0 else True
-    assert PA.LAUNCHES["paged_attention"] > 0
+    for i, ln in enumerate(lens):
+        if ln == 0:
+            assert bool((out[i] == 0).all())
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["float", "int8", "int4"])
+@pytest.mark.parametrize("s,lens,n_cols", [(1, [50, 0, 17], 8), (8, [24, 8, 13], 4)])
+@pytest.mark.parametrize("g,dh", [(3, 32), (7, 128)])   # the latter needs > 48 KB
+def test_paged_attention_kernel(dev, fmt, s, lens, n_cols, g, dh):
+    _attention_case(dev, fmt, 8, s, g, dh, lens, n_cols)
+
+
+# (fmt, T, S, G, dh, lens, table columns, kv_splits, q dtype, group, rows)
+# Contexts end mid-page and mid-tile; 12-column tables hold several tiles, so
+# the copy of tile i+1 overlaps tile i; G = 3 and 7 pad a warp's 16 rows; a
+# plan of 64 rows per block puts rows of one block in several warps and pads
+# S (128 rows: eight row warps, no key warps); explicit splits run with a
+# length-0 row.
+TILE_CASES = [
+    ("int4", 8, 32, 4, 64, [96, 45, 33], 12, None, torch.float32, None, None),
+    ("int8", 16, 8, 3, 80, [190, 70, 0], 12, None, torch.bfloat16, None, None),
+    ("float", 32, 1, 7, 96, [300, 0, 33], 12, None, torch.float32, None, None),
+    ("int4", 16, 32, 7, 128, [180, 100, 40], 12, None, torch.bfloat16, None, None),
+    ("int4", 8, 1, 4, 128, [90, 0, 41], 12, 3, torch.float32, None, None),
+    ("bf16", 32, 8, 3, 64, [150, 0, 70], 6, 2, torch.bfloat16, None, None),
+    ("int4", 16, 1, 4, 64, [500, 0, 260], 32, None, torch.bfloat16, None, None),
+    ("float", 16, 32, 4, 96, [192, 33, 0], 12, None, torch.float32, None, None),
+    ("bf16", 8, 8, 3, 80, [96, 61, 9], 12, None, torch.float32, None, None),
+    ("int8", 16, 8, 4, 64, [170, 100, 16], 12, None, torch.float32, 16, None),
+    ("int4", 16, 32, 3, 80, [180, 64, 0], 12, None, torch.float32, None, 64),
+    ("bf16", 8, 32, 7, 128, [96, 50, 20], 12, None, torch.bfloat16, None, 64),
+    ("float", 32, 8, 4, 64, [350, 8, 200], 12, 3, torch.float32, None, 64),
+    ("int4", 16, 32, 4, 64, [180, 100, 40], 12, None, torch.float32, None, 128),
+]
+
+
+@pytest.mark.parametrize(
+    "fmt,t,s,g,dh,lens,n_cols,kv_splits,q_dtype,group,rows", TILE_CASES,
+    ids=[f"{c[0]}-T{c[1]}-S{c[2]}-G{c[3]}-dh{c[4]}-{i}" for i, c in enumerate(TILE_CASES)])
+def test_paged_attention_kernel_tiles(dev, monkeypatch, fmt, t, s, g, dh, lens, n_cols,
+                                      kv_splits, q_dtype, group, rows):
+    if rows is not None:
+        monkeypatch.setattr(PA, "PLAN_ROWS", rows)
+        plan = PA.attention_plan(g, s, dh, t, torch.int8 if fmt.startswith("int")
+                                 else torch.float32, group=group)
+        assert plan.warps > 1
+    _attention_case(dev, fmt, t, s, g, dh, lens, n_cols, kv_splits, q_dtype, group)
 
 
 @pytest.mark.parametrize("shape,b", [((4, 1, 8192), 16), ((37, 2048), 1),

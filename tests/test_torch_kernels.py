@@ -469,3 +469,61 @@ def test_module_wrappers_launch_or_raise():
     with pytest.raises(ValueError, match="not divisible"):
         tbh.block_hadamard(x, 12)
     assert all(v == 0 for v in tops.kernel_launch_counts().values())
+
+
+# -------------------- the kernel's launch plan --------------------
+
+def _attention_configs():
+    from repro_torch.configs.registry import all_configs
+    return {name: (cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
+            for name, cfg in all_configs().items() if cfg.n_heads}
+
+
+@pytest.mark.parametrize("page_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("t", [8, 16, 32])
+@pytest.mark.parametrize("arch", sorted(_attention_configs()))
+def test_attention_plan_covers_rows_and_fits(arch, t, page_dtype):
+    """For every attention config of the repo: the plan's blocks cover each
+    (query head, query position) of a KV head exactly once with warps of 16
+    rows, its shared memory fits one H100 block, and a tile holds a page."""
+    g, dh = _attention_configs()[arch]
+    for s in (1, 8, 32):
+        plan = tpa.attention_plan(g, s, dh, t, page_dtype,
+                                  group=dh if page_dtype == torch.int8 else None)
+        rows = g * plan.q_rows
+        assert 1 <= plan.q_rows <= s
+        assert plan.warps == -(-rows // 16)
+        assert 1 <= plan.key_warps <= -(-plan.pages_per_tile * t // 8)
+        assert plan.threads == 32 * max(4, plan.warps * plan.key_warps) <= 256
+        assert plan.warps * plan.key_warps <= max(
+            tpa.PLAN_DECODE[0], tpa.PLAN_PREFILL[0], plan.warps)
+        assert plan.pages_per_tile >= 1
+        assert plan.smem_bytes <= 232_448
+        seen = []
+        for qb in range(-(-s // plan.q_rows)):
+            for r in range(plan.warps * 16):
+                gi, si = r // plan.q_rows, qb * plan.q_rows + r % plan.q_rows
+                if r < rows and si < s:
+                    seen.append((gi, si))
+        assert sorted(seen) == [(gi, si) for gi in range(g) for si in range(s)]
+
+
+def test_attention_plan_refuses_what_the_kernel_cannot_run(monkeypatch):
+    """A head dim that is no multiple of 8 (or above 128) is a clear
+    ValueError from the wrapper, before any device check or launch; the
+    plain version still takes it."""
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tpa.attention_plan(4, 1, 36, 16, torch.int8)
+    with pytest.raises(ValueError, match="at most 128"):
+        tpa.attention_plan(4, 1, 256, 16, torch.bfloat16)
+    kv = {"k": torch.zeros(3, 4, 1, 12), "v": torch.zeros(3, 4, 1, 12)}
+    args = (torch.zeros(1, 1, 2, 12), kv, torch.ones(1, 2, dtype=torch.int32),
+            torch.zeros(1, 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tpa.paged_attention(*args)
+    assert tops.kernel_launch_counts()["paged_attention"] == 0
+    assert tpa.paged_attention_plain(*args).shape == (1, 1, 2, 12)
+    # more rows than a block's 8 warps hold move to fewer query rows per block
+    monkeypatch.setattr(tpa, "PLAN_ROWS", 1024)
+    plan = tpa.attention_plan(4, 64, 64, 16, torch.bfloat16)
+    assert 4 * plan.q_rows <= 128 and plan.warps <= 8
