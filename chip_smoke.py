@@ -22,7 +22,9 @@ state. Phases print one JSON line each:
     profile  (only with --profile) where a decode step's time goes, without
              and with the probe
     sweep    (only with --sweep) the attention kernel under other launch
-             plans: block rows, warps per block, keys per tile
+             plans (block rows, warps per block, keys per tile), then
+             `int4_matmul` (target blocks, tile rows) and
+             `block_hadamard` (elements per thread, blocks) under theirs
 
 then the card's `name, power.limit`, then one `{"kernels": [...]}` object
 with the per-kernel record of this run, then as the last line
@@ -233,16 +235,17 @@ def check_int4_matmul(rng, m, k, n):
     pms = time_ms([lambda w=w: I4.int4_matmul_plain(qa, sa, za, w, sw, cs)
                    for w in wps], 10)
     # yardstick: one library int8 GEMM on the unpacked weights (integer part
-    # only). It needs M > 16, so fewer rows are zero-padded to 32 and the
-    # record says so; it takes K and N in multiples of 8 only, so the ragged
-    # case reports none.
+    # only). It needs M > 16 and takes M, K and N in multiples of 8, so other
+    # row counts are zero-padded to the next multiple of 8 from 32 up and the
+    # record says so; the ragged case reports none.
     lib, lib_note = None, None
     if k % 8 == 0 and n % 8 == 0:
         qa_lib, lib_note = qa, "torch._int_mm on unpacked int8 weights"
-        if m <= 16:
-            qa_lib = torch.zeros((32, k), dtype=torch.int8, device=DEV)
+        rows = max(32, -(-m // 8) * 8)
+        if rows != m:
+            qa_lib = torch.zeros((rows, k), dtype=torch.int8, device=DEV)
             qa_lib[:m] = qa
-            lib_note += f", q_a zero-padded from {m} to 32 rows"
+            lib_note += f", q_a zero-padded from {m} to {rows} rows"
         w8s = [wc.clone() for _ in range(n_copies(wc.numel()))]
         if not torch.equal(torch._int_mm(qa_lib, wc)[:m].double(), want_acc):
             fail("torch._int_mm disagrees with the exact integer product")
@@ -250,6 +253,7 @@ def check_int4_matmul(rng, m, k, n):
     nbytes = m * k + k * n // 2 + 8 * m + 8 * n + 4 * m * n
     bms, by = bound(nbytes, 2.0 * m * k * n, PEAK_INT8_OPS_S)
     return {"shape": f"q_a[{m},{k}] w[{k // 2},{n}]", "ok": ok,
+            "plan": I4.int4_plan(m, n, k).__dict__,
             "integer_part_exact": int_exact, "max_rel_err": rel,
             "max_abs_err": err,
             "tolerance": "integer accumulator exact; output 1e-6 relative",
@@ -424,6 +428,7 @@ def check_block_hadamard(rng, shape, b, dtype):
     return {"shape": f"x[{','.join(map(str, shape))}] "
                      f"{str(dtype).split('.')[-1]} b={b}",
             "ok": ok and nan_ok, "max_abs_err": err, "max_abs_y": top,
+            "plan": BH.hadamard_plan(m, d, b).__dict__,
             "nan_poisons_its_block_only": nan_ok,
             "tolerance": "2e-5 of max|y| (+ one bf16 ulp for bf16 output)",
             "ms": ms, "call_ms": call_ms, "plain_ms": plain, "bound_ms": bms,
@@ -451,7 +456,7 @@ def phase_kernels():
             cases["hadamard_quant"].append(check_hadamard_quant(rng, m, d, b, dt))
     cases["hadamard_quant"].append(
         check_hadamard_quant(rng, 4, 3072, 12, torch.float32))   # Paley order
-    for m in (4, 32):
+    for m in (4, 32, 16, 17):
         for k, n in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)):
             cases["int4_matmul"].append(check_int4_matmul(rng, m, k, n))
     cases["int4_matmul"].append(check_int4_matmul(rng, 5, 250, 514))  # ragged
@@ -519,6 +524,91 @@ def phase_sweep():
     emit("sweep", ok=ok, defaults=dict(zip(knobs, default)), runs=out)
     if not ok:
         fail("an attention plan disagrees with the plain version")
+    sweep_int4()
+    sweep_hadamard()
+
+
+def _with_knobs(module, knobs: dict, fn):
+    """fn() with module-level plan knobs set, restored afterwards."""
+    old = {k: getattr(module, k) for k in knobs}
+    try:
+        for k, v in knobs.items():
+            setattr(module, k, v)
+        return fn()
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def sweep_int4():
+    """`int4_matmul` under other plans at the serve path's shapes and M = 4,
+    8, 16, 17, 32: the target block count (which sets the K splits) and the
+    tile rows. Every plan must give the exact integer product."""
+    rng = np.random.default_rng(7)
+    grid = [{"PLAN_BLOCKS": bl, "PLAN_ROWS": r}
+            for bl in (132, 264, 528) for r in (32, 64)]
+    runs = []
+    for m in (4, 8, 16, 17, 32):
+        for k, n in ((2048, 8192), (8192, 2048), (2048, 512)):
+            qa = torch.from_numpy(rng.integers(0, 16, (m, k)).astype(np.int8)).to(DEV)
+            wc = torch.from_numpy(rng.integers(-8, 8, (k, n)).astype(np.int8)).to(DEV)
+            wps = [I4.int4_pack(wc) for _ in range(n_copies(k * n // 2))]
+            one_m = torch.ones((m, 1), device=DEV)
+            zero_m = torch.zeros((m, 1), device=DEV)
+            one_n = torch.ones((n,), device=DEV)
+            cs = I4.int4_colsum(wps[0])
+            want = qa.double() @ wc.double()
+            for knobs in grid:
+                def run():
+                    got = I4.int4_matmul(qa, one_m, zero_m, wps[0], one_n, cs)
+                    exact = bool(torch.equal(got.double(), want))
+                    ms = device_ms([lambda w=w: I4.int4_matmul(qa, one_m, zero_m, w,
+                                                               one_n, cs) for w in wps])
+                    return exact, ms, I4.int4_plan(m, n, k).__dict__
+                exact, ms, plan = _with_knobs(I4, knobs, run)
+                runs.append({"shape": f"q_a[{m},{k}] w[{k // 2},{n}]", "knobs": knobs,
+                             "plan": plan, "ok": exact, "ms": ms})
+    ok = all(r["ok"] for r in runs)
+    emit("sweep_int4_matmul", ok=ok, runs=runs)
+    if not ok:
+        fail("an int4_matmul plan gave a wrong integer product")
+
+
+def sweep_hadamard():
+    """`block_hadamard` under other plans: elements per thread and the
+    target block count, at the three cases held against `torch.matmul` and
+    at b = D (the block kernel)."""
+    rng = np.random.default_rng(8)
+    runs = []
+    for shape, b, dt in (((4, 1, 8192), 16, torch.float32),
+                         ((32, 8192), 16, torch.bfloat16),
+                         ((37, 2048), 32, torch.bfloat16),
+                         ((32, 2048), 2048, torch.float32)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(DEV).to(dt)
+        want = BH.block_hadamard_plain(x, b).float()
+        # the kernels phase's rule: 2e-5 of max|y|, + one bf16 ulp for bf16
+        tol = 2e-5 * float(want.abs().max()) + (
+            2 ** -7 * want.abs() if dt == torch.bfloat16 else 0.0)
+        xs = [x.clone() for _ in range(n_copies(x.numel() * x.element_size()))]
+        for elems in (4, 8, 16):
+            for blocks in (33, 66, 132, 264, 528):
+                knobs = {"PLAN_ELEMS": elems, "PLAN_BLOCKS": blocks}
+
+                def run():
+                    diff = (BH.block_hadamard(x, b).float() - want).abs()
+                    ms = device_ms([lambda t=t: BH.block_hadamard(t, b) for t in xs])
+                    d = shape[-1]
+                    return (bool((diff <= tol).all()), float(diff.max()), ms,
+                            BH.hadamard_plan(x.numel() // d, d, b).__dict__)
+                ok, err, ms, plan = _with_knobs(BH, knobs, run)
+                runs.append({"shape": f"x[{','.join(map(str, shape))}] "
+                                      f"{str(dt).split('.')[-1]} b={b}",
+                             "knobs": knobs, "plan": plan, "ok": ok,
+                             "max_abs_err": err, "ms": ms})
+    ok = all(r["ok"] for r in runs)
+    emit("sweep_block_hadamard", ok=ok, runs=runs)
+    if not ok:
+        fail("a block_hadamard plan disagrees with the plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -804,6 +894,17 @@ def phase_parity(adapter):
 # phase: profile (optional)
 # ---------------------------------------------------------------------------
 
+# the device kernels of each hand-written kernel, by the names that
+# torch.profiler's keys contain
+HAND_WRITTEN_KERNELS = {
+    "int4_matmul": ("i4_mma_kernel",),
+    "hadamard_quant": ("hadamard_quant_kernel",),
+    "paged_attention": ("paged_attention_kernel",),
+    "combine_partials": ("combine_partials_kernel",),
+    "block_hadamard": ("bh_warp_kernel", "bh_block_kernel", "bh_dense_kernel"),
+}
+
+
 def phase_profile(adapter):
     """Where a pure decode step's time goes: 4 sequences of ~100 cached
     tokens, host wall per step, then the same steps under torch.profiler for
@@ -853,6 +954,9 @@ def phase_profile(adapter):
                 if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
         rows.sort(key=lambda r: -r[1])
         busy_ms = sum(r[1] for r in rows) / 1e3 / n
+        hand = {name: sum(us for key, us, _ in rows
+                          if any(kn in key for kn in names)) / 1e3 / n
+                for name, names in HAND_WRITTEN_KERNELS.items()}
         return dict(
             decode_rows=len(engine.decoding), steps=n,
             ms_per_decode_step=wall_ms,
@@ -862,6 +966,8 @@ def phase_profile(adapter):
             device_kernels_per_step=sum(r[2] for r in rows) / n,
             hand_written_launches_per_step={k: v / n
                                             for k, v in launches.items()},
+            hand_written_device_ms_per_step=hand,
+            int4_matmul_share_of_busy=hand["int4_matmul"] / busy_ms,
             top_device_kernels=[{"name": k[:90], "ms_per_step": us / 1e3 / n,
                                  "calls_per_step": c / n}
                                 for k, us, c in rows[:14]])
@@ -929,7 +1035,8 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also break a decode step down with torch.profiler")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time the attention kernel under other plans")
+                    help="also time the attention, int4_matmul and "
+                         "block_hadamard kernels under other plans")
     ap.add_argument("--ptxas", action="store_true",
                     help="print what ptxas reports per kernel (stderr)")
     args = ap.parse_args(argv)

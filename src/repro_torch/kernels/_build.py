@@ -5,7 +5,7 @@ returning the `cudaGetLastError()` code), so they compile with `nvcc` alone,
 without PyTorch's headers, in seconds. Each source is compiled to an object
 file by its own `nvcc` process, all started together, then linked into
 
-    <build dir>/libmixquant_kernels_<hash of the sources>.so
+    <build dir>/libmixquant_kernels_<hash of the sources and headers>.so
 
 and loaded with `ctypes`, every function's `argtypes` set so that pointers
 are passed at full width. The build happens at first use, never at import.
@@ -32,9 +32,9 @@ _I = ctypes.c_int
 
 # function name -> argtypes (the stream is the last pointer of each)
 SIGNATURES = {
-    "block_hadamard_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
+    "block_hadamard_launch": [_P, _I, _P, _P] + [_I] * 8 + [_P],
     "hadamard_quant_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "int4_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "int4_matmul_launch": [_P] * 9 + [_I] * 11 + [_P],
     "paged_attention_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P] + [_I] * 18 + [_P],
     "combine_partials_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -46,6 +46,10 @@ BUILD_INFO = {"seconds": None, "library": None, "log": ""}
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.h"))
 
 
 def build_dir() -> Path:
@@ -74,7 +78,7 @@ def build(verbose: bool = False) -> Path:
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     digest = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + headers():
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

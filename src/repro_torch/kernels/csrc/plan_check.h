@@ -1,0 +1,73 @@
+// Launch-plan checks of block_hadamard.cu and int4_matmul.cu.
+//
+// The plans are computed in Python (`kernels/block_hadamard.py::hadamard_plan`,
+// `kernels/int4_matmul.py::int4_plan`); each C launch calls the check below
+// first and refuses (cudaErrorInvalidValue) a plan that does not match the
+// geometry its kernels are written for. Plain C++ with no CUDA header, so the
+// CPU tests compile this file with the host compiler and hold every Python
+// plan against it.
+#pragma once
+
+namespace plan {
+
+inline bool pow2(long long v) { return v > 0 && (v & (v - 1)) == 0; }
+inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// ---- block_hadamard ---------------------------------------------------------
+
+constexpr int BH_WARP = 0;     // power-of-two b <= 32 * E: registers + shuffles
+constexpr int BH_BLOCK = 1;    // power-of-two b > 32 * E: one block per b-block
+constexpr int BH_DENSE = 2;    // any other order: dense operand, E outputs a thread
+
+// x [m, d], block size b, `dense_operand` whether H_b / sqrt(b) is passed;
+// e elements per thread, `threads` per block, `grid` blocks, `smem` bytes.
+inline bool hadamard_plan_ok(long long m, long long d, long long b, bool dense_operand,
+                             int kind, int e, int threads, long long grid, long long smem) {
+  if (m <= 0 || d <= 0 || b <= 0 || d % b || !pow2(e) || d % e || threads <= 0 ||
+      threads % 32 || grid <= 0)
+    return false;
+  const long long chunks = m * d / e;
+  const long long cover = grid * threads;
+  if (kind == BH_WARP)
+    return pow2(b) && !dense_operand && e <= 32 && b <= 32LL * e && threads <= 256 &&
+           smem == 0 && cover >= chunks && cover - threads < chunks;
+  if (kind == BH_BLOCK)
+    return pow2(b) && !dense_operand && (e == 8 || e == 16 || e == 32) && b > 32LL * e &&
+           (long long)threads * e == b && threads <= 1024 && grid == m * d / b &&
+           smem == 4 * b && smem <= 232448;
+  if (kind == BH_DENSE)
+    return !pow2(b) && dense_operand && e <= 4 && b % e == 0 && threads <= 256 &&
+           smem == 0 && cover >= chunks && cover - threads < chunks;
+  return false;
+}
+
+// ---- int4_matmul ------------------------------------------------------------
+
+constexpr int MMA_COLS = 128;       // 4 warps across N, 32 columns each
+constexpr int MMA_K_ROWS = 64;      // packed rows (128 K) per pipeline stage
+constexpr int MMA_B_STAGE = MMA_K_ROWS * MMA_COLS;   // bytes of packed weights
+constexpr int MMA_A_PITCH = 2 * MMA_K_ROWS + 32;     // bytes per activation row
+constexpr int MMA_STAGES = 4;       // cp.async ring depth
+
+inline long long mma_smem(int rows) {
+  return (long long)MMA_STAGES * (MMA_B_STAGE + (long long)rows * MMA_A_PITCH);
+}
+
+// q_a [m, k] x packed w [k/2, n]; the plan: activation rows per block,
+// packed rows per K split, splits, threads per block, grid, dynamic
+// shared-memory bytes; `workspace` whether the int32 split workspace
+// and its tile counters are passed.
+inline bool int4_plan_ok(long long m, long long n, long long k, int rows, long long k_rows,
+                         int splits, int threads, long long gx, long long gy, long long gz,
+                         long long smem, bool workspace) {
+  if (m <= 0 || n <= 0 || k <= 0 || k % 2 || splits < 1 || k_rows <= 0 || gy != splits)
+    return false;
+  const long long k2 = k / 2;
+  if (k_rows * splits < k2 || k_rows * (splits - 1) >= k2) return false;
+  if (splits > 1 && !workspace) return false;
+  return (rows == 32 || rows == 64) && threads == 4 * rows && k_rows % MMA_K_ROWS == 0 &&
+         gx == cdiv(n, MMA_COLS) && gz == cdiv(m, rows) && smem == mma_smem(rows) &&
+         smem <= 232448;
+}
+
+}  // namespace plan

@@ -9,14 +9,21 @@ with `q_a` per-token asymmetric int4 activation codes (int8 storage), `q_w`
 symmetric int4 weights packed two rows per byte, an exact int32 accumulator
 and a float epilogue.
 
-Bound on an H100: bytes at decode (M <= 16: the packed weight, half a byte
-per element, is read once and dwarfs everything else), operations at large
-prefill chunks. Design (`csrc/int4_matmul.cu`): nibbles are unpacked to int8
-in registers and accumulated with `__dp4a`; each thread owns four output
-columns so a warp reads 128 contiguous bytes of a packed row; the K axis is
-cut into slices so a decode-sized call still spreads the weight stream over
-every SM, the slices' int32 partials being summed by a small second kernel
-before the epilogue. Ragged edges are masked in the kernel; nothing is
+Bound on an H100: bytes, at decode (the packed weight, half a byte per
+element, is read once and dwarfs everything else) and at the serve path's
+32-row prefill chunks alike, against the int8 tensor cores' rate. Design
+(`csrc/int4_matmul.cu`): one kernel for every M on the int8 tensor cores
+(`mma.sync` m16n8k32 over `cp.async`-staged tiles of 32 or 64 rows x 128
+columns). K is taken in groups of 8 whose nibbles a byte transpose turns
+into two words of offset codes w + 8 (K 0,2,4,6 and 1,3,5,7), the
+activation codes being read in the same order, and the product is
+corrected by -8 · rowsum(q_a), exact in int32. K is split over the grid
+until about `PLAN_BLOCKS` blocks spread the weight stream over the SMs; the
+splits meet in an int32 workspace by `atomicAdd`, and the last split of
+each tile runs the epilogue and leaves the workspace and its counter zero,
+so one launch does the call and the call can be replayed from a CUDA graph.
+`int4_plan` is the launch plan; the C launch checks it
+(`csrc/plan_check.h`). Ragged edges are masked in the kernel; nothing is
 padded. The column sums come from pack time (`ops.pack_int4_weights`), not
 from a pass over the weights on every call.
 
@@ -26,19 +33,38 @@ alone sends a CPU tensor to it.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from . import _build
 
 __all__ = ["int4_matmul", "int4_matmul_plain", "int4_pack", "int4_unpack",
-           "int4_colsum", "split_plan", "LAUNCHES"]
+           "int4_colsum", "int4_plan", "Int4Plan", "LAUNCHES"]
 
 LAUNCHES = {"int4_matmul": 0}
 
-# geometry of csrc/int4_matmul.cu
-_BN = 256          # output columns per block
-_K_STAGE = 256     # K entries staged per pass
-_TARGET_BLOCKS = 264   # two blocks per SM on a 132-SM card
+# Geometry of csrc/int4_matmul.cu (csrc/plan_check.h holds the same numbers)
+MMA_COLS = 128         # output columns per block: 4 warps of 32
+MMA_K_ROWS = 64        # packed rows (128 K) per pipeline stage
+MMA_A_PITCH = 2 * MMA_K_ROWS + 32   # bytes per staged activation row
+MMA_STAGES = 4         # cp.async ring depth
+
+# What the plan aims at (`chip_smoke.py --sweep` times other values): tiles
+# of 32 rows up to M = 32, else 64 (`PLAN_ROWS` overrides); K split until
+# the grid holds about `PLAN_BLOCKS` blocks.
+PLAN_ROWS = None
+PLAN_BLOCKS = 264
+
+
+@dataclasses.dataclass(frozen=True)
+class Int4Plan:
+    rows: int             # activation rows per block (32 or 64)
+    k_rows: int           # packed weight rows (2 K each) per K split
+    splits: int           # K splits (grid.y); > 1 uses the workspace
+    threads: int          # 4 warps per 32 rows
+    grid: tuple           # (column tiles, splits, row tiles)
+    smem_bytes: int       # dynamic shared memory
 
 
 def int4_pack(codes: torch.Tensor) -> torch.Tensor:
@@ -95,17 +121,51 @@ def int4_matmul_plain(act_codes: torch.Tensor, act_scale: torch.Tensor,
     return (sa * sw) * (acc.to(torch.float32) + za * cs)
 
 
-def split_plan(m: int, n: int, k: int) -> tuple[int, int]:
-    """(K extent of one slice, number of slices) for the kernel's grid: as
-    many slices as it takes to reach about two blocks per SM, each a
-    multiple of the staged K width."""
-    bm = 4 if m <= 4 else (8 if m <= 8 else 16)
-    blocks = -(-n // _BN) * -(-m // bm)
-    want = max(1, -(-_TARGET_BLOCKS // blocks))
-    stages = -(-k // _K_STAGE)
-    splits = min(want, stages)
-    kc = -(-stages // splits) * _K_STAGE
-    return kc, -(-k // kc)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def int4_plan(m: int, n: int, k: int) -> Int4Plan:
+    """How the kernel cuts q_a [m, k] x packed w [k/2, n]: tiles of `rows`
+    x 128 columns; K cut into splits of whole 64-row stages, as many as
+    bring the grid near `PLAN_BLOCKS` blocks; a 4-stage ring of shared
+    memory. Raises ValueError where the kernel cannot run: an odd K,
+    or a grid past CUDA's limits."""
+    if k <= 0 or k % 2 or m <= 0 or n <= 0:
+        raise ValueError(f"int4_matmul: needs M, N > 0 and an even K > 0; got "
+                         f"M={m}, N={n}, K={k}")
+    rows = PLAN_ROWS or (32 if m <= 32 else 64)
+    gx, gz = _cdiv(n, MMA_COLS), _cdiv(m, rows)
+    stages_k = _cdiv(k // 2, MMA_K_ROWS)
+    splits = min(stages_k, max(1, _cdiv(PLAN_BLOCKS, gx * gz)))
+    k_rows = _cdiv(stages_k, splits) * MMA_K_ROWS
+    splits = _cdiv(k // 2, k_rows)
+    if gx > 2 ** 31 - 1 or gz > 65535 or splits > 65535:
+        raise ValueError(f"int4_matmul: grid {(gx, splits, gz)} past CUDA's limits")
+    return Int4Plan(rows, k_rows, splits, 4 * rows, (gx, splits, gz),
+                    MMA_STAGES * (MMA_K_ROWS * MMA_COLS + rows * MMA_A_PITCH))
+
+
+# Per device: the int32 split workspace and its tile counters, zero between
+# calls (each launch leaves them zero). One per device: calls on a device
+# must not run concurrently on two streams.
+_WORKSPACE: dict = {}
+
+
+def _workspace(dev: torch.device, n_ws: int, n_cnt: int):
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    have = _WORKSPACE.get(key)
+    if have is None or have[0].numel() < n_ws or have[1].numel() < n_cnt:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "int4_matmul: its split workspace must be allocated before "
+                "CUDA-graph capture; run the call once outside the capture")
+        n_ws = max(n_ws, have[0].numel() if have else 0)
+        n_cnt = max(n_cnt, have[1].numel() if have else 0)
+        have = _WORKSPACE[key] = (
+            torch.zeros(n_ws, dtype=torch.int32, device=dev),
+            torch.zeros(n_cnt, dtype=torch.int32, device=dev))
+    return have
 
 
 def int4_matmul(act_codes: torch.Tensor, act_scale: torch.Tensor,
@@ -138,19 +198,25 @@ def int4_matmul(act_codes: torch.Tensor, act_scale: torch.Tensor,
     for t in (w, sa, za, sw, cs):
         if t.device != dev:
             raise RuntimeError("int4_matmul: operands on different devices")
-    if qa.data_ptr() % 4 or w.data_ptr() % 4:
-        qa, w = qa.clone(), w.clone()   # the kernel reads 32-bit words
-    kc, splits = split_plan(m, n, k)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    part = (torch.empty((splits, m, n), dtype=torch.int32, device=dev)
-            if splits > 1 else None)
+    if out.numel() == 0:
+        return out
+    if qa.data_ptr() % 16:
+        qa = qa.clone()                 # the kernel reads 16-byte vectors
+    if w.data_ptr() % 16:
+        w = w.clone()
+    plan = int4_plan(m, n, k)
+    ws = cnt = None
+    if plan.splits > 1:
+        ws, cnt = _workspace(dev, m * n, plan.grid[0] * plan.grid[2])
     lib = _build.load()
     code = lib.int4_matmul_launch(
         qa.data_ptr(), w.data_ptr(),
-        part.data_ptr() if part is not None else None,
+        ws.data_ptr() if ws is not None else None,
+        cnt.data_ptr() if cnt is not None else None,
         sa.data_ptr(), za.data_ptr(), sw.data_ptr(), cs.data_ptr(),
-        out.data_ptr(), m, n, k, kc, splits,
-        _build.stream_ptr(dev))
+        out.data_ptr(), m, n, k, plan.rows, plan.k_rows, plan.splits,
+        plan.threads, *plan.grid, plan.smem_bytes, _build.stream_ptr(dev))
     _build.check(code, "int4_matmul")
     LAUNCHES["int4_matmul"] += 1
     return out

@@ -46,7 +46,12 @@ def test_hadamard_quant_kernel(dev, d, b, dtype):
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 64, 8), (4, 2048, 512), (37, 250, 514),
-                                   (130, 512, 1024)])
+                                   (130, 512, 1024),
+                                   # decode- and prefill-sized M, ragged tiles
+                                   (1, 2048, 2048), (16, 2048, 2048), (17, 2048, 2048),
+                                   (32, 8192, 512), (33, 1024, 1024), (130, 2048, 640),
+                                   (4, 250, 514), (16, 250, 514), (17, 250, 514),
+                                   (33, 250, 514), (1, 4096, 8192)])
 def test_int4_matmul_kernel(dev, m, k, n):
     rng = np.random.default_rng(1)
     qa = torch.from_numpy(rng.integers(0, 16, (m, k)).astype(np.int8)).to(dev)
@@ -55,11 +60,115 @@ def test_int4_matmul_kernel(dev, m, k, n):
     sa = torch.from_numpy(rng.uniform(0.01, 0.2, (m, 1)).astype(np.float32)).to(dev)
     za = torch.from_numpy(np.round(rng.uniform(-12, 0, (m, 1))).astype(np.float32)).to(dev)
     sw = torch.from_numpy(rng.uniform(0.001, 0.02, (n,)).astype(np.float32)).to(dev)
+    before = I4.LAUNCHES["int4_matmul"]
     out = kops.int4_matmul(qa, sa, za, wp, sw)
+    assert I4.LAUNCHES["int4_matmul"] == before + 1
     with kops.use_kernels(False):
         want = kops.int4_matmul(qa, sa, za, wp, sw)
     # same integers, same three f32 roundings in the same order
     torch.testing.assert_close(out, want, rtol=1e-6, atol=0)
+    acc = I4.int4_matmul(qa, torch.ones_like(sa), torch.zeros_like(za), wp,
+                         torch.ones_like(sw))
+    assert torch.equal(acc.double(), qa.double() @ wc.double())
+
+
+def _integer_part(qa, wp):
+    """The kernel's float(q_a @ q_w): unit scales and a zero offset."""
+    m, n = qa.shape[0], wp.shape[1]
+    one_m = torch.ones((m, 1), dtype=torch.float32, device=qa.device)
+    one_n = torch.ones((n,), dtype=torch.float32, device=qa.device)
+    return I4.int4_matmul(qa, one_m, torch.zeros_like(one_m), wp, one_n)
+
+
+@pytest.mark.parametrize("k", [8192, 16384])
+@pytest.mark.parametrize("m", [4, 32])
+@pytest.mark.parametrize("a_code,w_code", [(15, -8), (0, 7), (-128, -8), (127, 7)])
+def test_int4_matmul_extreme_codes(dev, m, k, a_code, w_code):
+    """The largest products the int32 accumulator sees (|sum| up to
+    128 * 8 * 16384 = 2^24), bit-equal to the exact integer product."""
+    n = 1024
+    qa = torch.full((m, k), a_code, dtype=torch.int8, device=dev)
+    wc = torch.full((k, n), w_code, dtype=torch.int8, device=dev)
+    got = _integer_part(qa, I4.int4_pack(wc))
+    assert torch.equal(got.double(), torch.full_like(got.double(), float(a_code * w_code * k)))
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 8192), (32, 8192, 2048), (130, 2048, 512)])
+def test_int4_matmul_graph_replay(dev, m, k, n):
+    """Captured in a CUDA graph and replayed twice: the same output as the
+    eager call each time, so the split workspace and its counters are left
+    zero by every launch."""
+    rng = np.random.default_rng(4)
+    qa = torch.from_numpy(rng.integers(0, 16, (m, k)).astype(np.int8)).to(dev)
+    wp = torch.from_numpy(rng.integers(0, 256, (k // 2, n)).astype(np.uint8)).to(dev)
+    assert I4.int4_plan(m, n, k).splits > 1
+    want = _integer_part(qa, wp)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _integer_part(qa, wp)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert torch.equal(_integer_part(qa, wp), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 512, 256), (33, 512, 256)])
+def test_int4_matmul_misaligned_operands(dev, m, k, n):
+    """Codes and packed weights that start at an odd byte offset."""
+    rng = np.random.default_rng(5)
+    qa_buf = torch.from_numpy(rng.integers(0, 16, m * k + 3).astype(np.int8)).to(dev)
+    w_buf = torch.from_numpy(rng.integers(0, 256, k // 2 * n + 5).astype(np.uint8)).to(dev)
+    qa = qa_buf[3:].view(m, k)
+    wp = w_buf[5:].view(k // 2, n)
+    assert qa.data_ptr() % 16 and wp.data_ptr() % 16
+    want = qa.double() @ I4.int4_unpack(wp).double()
+    assert torch.equal(_integer_part(qa, wp).double(), want)
+
+
+def test_launches_refuse_a_plan_that_disagrees(dev):
+    """The C launches check the Python plan against their own geometry."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    qa = torch.zeros((4, 256), dtype=torch.int8, device=dev)
+    wp = torch.zeros((128, 512), dtype=torch.uint8, device=dev)
+    f = torch.zeros(512, dtype=torch.float32, device=dev)
+    cs = torch.zeros(512, dtype=torch.int32, device=dev)
+    out = torch.empty((4, 512), dtype=torch.float32, device=dev)
+    p = I4.int4_plan(4, 512, 256)
+    args = dict(rows=p.rows, k_rows=p.k_rows, splits=p.splits, threads=p.threads,
+                gx=p.grid[0], gy=p.grid[1], gz=p.grid[2],
+                smem=p.smem_bytes)
+    ws, cnt = I4._workspace(dev, 4 * 512, 64)
+
+    def call(**change):
+        a = {**args, **change}
+        return lib.int4_matmul_launch(
+            qa.data_ptr(), wp.data_ptr(), ws.data_ptr(), cnt.data_ptr(), f.data_ptr(),
+            f.data_ptr(), f.data_ptr(), cs.data_ptr(), out.data_ptr(), 4, 512, 256,
+            *a.values(), torch.cuda.current_stream().cuda_stream)
+
+    assert call() == 0
+    for change in ({"threads": 64}, {"k_rows": p.k_rows - 1}, {"gx": p.grid[0] + 1},
+                   {"smem": p.smem_bytes + 8}, {"rows": 64}, {"splits": p.splits + 1}):
+        assert call(**change) != 0, change
+    torch.cuda.synchronize()
+    x = torch.zeros((4, 64), dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
+    hp = BH.hadamard_plan(4, 64, 16)
+
+    def bh(**change):
+        a = {"kind": 0, "elems": hp.elems, "threads": hp.threads, "grid": hp.grid,
+             "smem": hp.smem_bytes, **change}
+        return lib.block_hadamard_launch(x.data_ptr(), 0, None, y.data_ptr(), 4, 64, 16,
+                                         *a.values(), torch.cuda.current_stream().cuda_stream)
+
+    assert bh() == 0
+    for change in ({"kind": 1}, {"elems": 1}, {"grid": hp.grid + 1}, {"threads": 48}):
+        assert bh(**change) != 0, change
+    torch.cuda.synchronize()
 
 
 def _attention_case(dev, fmt, t, s, g, dh, lens, n_cols, kv_splits=None,
@@ -182,3 +291,40 @@ def test_block_hadamard_kernel(dev, shape, b, dtype):
     out = kops.block_hadamard(poisoned, b)
     assert bool(out[0, ..., :b].isnan().all())
     assert bool(out[1:].isfinite().all())
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 2048, 12, 20])
+@pytest.mark.parametrize("m", [1, 4, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_hadamard_kernel_orders(dev, b, m, dtype):
+    """Every launch-plan kind (registers and shuffles, one block per
+    b-block, dense operand) at ragged row counts; a NaN poisons exactly its
+    own block."""
+    d = 4096 if b & (b - 1) == 0 else 240            # at least two blocks
+    rng = np.random.default_rng(b + m)
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32) * 3)
+    x = x.to(dev).to(dtype)
+    y = kops.block_hadamard(x, b)
+    want = BH.block_hadamard_plain(x, b)
+    atol = 2e-5 * float(want.float().abs().max())
+    rtol = 0 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), want.float(), rtol=rtol, atol=atol)
+    poisoned = x.clone()
+    poisoned[m - 1, b] = float("nan")                # first entry of block 1
+    out = kops.block_hadamard(poisoned, b)
+    assert bool(out[m - 1, b:2 * b].isnan().all())
+    assert int(out.isnan().sum()) == b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_hadamard_kernel_non_contiguous(dev, dtype):
+    rng = np.random.default_rng(6)
+    base = torch.from_numpy(rng.standard_normal((512, 12)).astype(np.float32))
+    x = base.to(dev).to(dtype).t()                   # [12, 512], strided
+    assert not x.is_contiguous()
+    for b in (16, 512, 4):
+        y = kops.block_hadamard(x, b)
+        want = BH.block_hadamard_plain(x.contiguous(), b)
+        atol = 2e-5 * float(want.float().abs().max())
+        rtol = 0 if dtype == torch.float32 else 2 ** -7
+        torch.testing.assert_close(y.float(), want.float(), rtol=rtol, atol=atol)

@@ -8,6 +8,7 @@ this JAX version renamed, and removes the alias again. The port runs on
 `device="cpu"`, i.e. each kernel's plain PyTorch version.
 """
 import contextlib
+import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -22,7 +23,9 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.int4_matmul import int4_colsum, split_plan
+from repro_torch.kernels import block_hadamard as tbh_mod
+from repro_torch.kernels import int4_matmul as ti4_mod
+from repro_torch.kernels.int4_matmul import int4_colsum, int4_plan
 
 
 def T(a):
@@ -155,11 +158,34 @@ def test_int4_matmul_leading_dims():
 
 @pytest.mark.parametrize("m,n,k", [(4, 2048, 2048), (4, 512, 2048),
                                    (32, 8192, 2048), (4, 2048, 8192),
-                                   (256, 8192, 2048), (5, 514, 250)])
+                                   (256, 8192, 2048), (5, 514, 250),
+                                   (16, 8192, 2048), (17, 8192, 2048),
+                                   (1, 8, 64), (130, 1024, 512),
+                                   (33, 514, 250), (4, 2048, 131072)])
 def test_int4_split_plan_covers_k(m, n, k):
-    kc, splits = split_plan(m, n, k)
-    assert kc % 4 == 0 and splits >= 1
-    assert kc * splits >= k > kc * (splits - 1)
+    """`int4_plan` (which replaced `split_plan`): the K splits cover the
+    packed rows once, each a whole number of the kernel's 64-row stages,
+    the grid covers M and N, and the shared memory fits one H100 block."""
+    p = int4_plan(m, n, k)
+    k2 = k // 2
+    assert p.k_rows % 64 == 0 and p.splits >= 1
+    assert p.k_rows * p.splits >= k2 > p.k_rows * (p.splits - 1)
+    assert p.grid[1] == p.splits
+    assert p.grid[0] * 128 >= n > (p.grid[0] - 1) * 128
+    assert p.grid[2] * p.rows >= m > (p.grid[2] - 1) * p.rows
+    assert p.rows == (32 if m <= 32 else 64) and p.threads == 4 * p.rows
+    assert p.smem_bytes == 4 * (64 * 128 + p.rows * 160) <= 232_448
+
+
+def test_int4_plan_refuses_what_the_kernel_cannot_run():
+    with pytest.raises(ValueError, match="even K"):
+        int4_plan(4, 64, 63)
+    with pytest.raises(ValueError, match="even K"):
+        int4_plan(0, 64, 64)
+    qa = torch.zeros((2, 63), dtype=torch.int8)
+    with pytest.raises(ValueError, match="packed K"):
+        ti4_mod.int4_matmul(qa, torch.ones(2, 1), torch.zeros(2, 1),
+                            torch.zeros((31, 8), dtype=torch.uint8), torch.ones(8))
 
 
 # -------------------- hadamard_quant / quantize_act --------------------
@@ -527,3 +553,298 @@ def test_attention_plan_refuses_what_the_kernel_cannot_run(monkeypatch):
     monkeypatch.setattr(tpa, "PLAN_ROWS", 1024)
     plan = tpa.attention_plan(4, 64, 64, 16, torch.bfloat16)
     assert 4 * plan.q_rows <= 128 and plan.warps <= 8
+
+
+# -------------------- the new kernels' plans and arithmetic --------------------
+
+@pytest.mark.parametrize("m,d,b", [(4, 8192, 16), (32, 8192, 16), (37, 2048, 32),
+                                   (1, 2048, 1), (3, 6, 2), (5, 20, 4), (9, 19200, 64),
+                                   (32, 8192, 256), (4, 4096, 512), (32, 2048, 2048),
+                                   (2, 16384, 16384), (1, 32768, 32768),
+                                   (32, 3072, 12), (7, 240, 20), (2, 2304, 768)])
+def test_hadamard_plan_covers_and_fits(m, d, b):
+    """Every b-block of x [m, d] is covered once by whole threads: the warp
+    kernel's b-blocks lie inside one warp, the block kernel gives each its
+    own block within 1024 threads and the card's shared memory, the dense
+    kernel's threads stay inside one b-block."""
+    p = tbh_mod.hadamard_plan(m, d, b)
+    chunks = m * d // p.elems
+    assert d % p.elems == 0 and p.threads % 32 == 0
+    if b & (b - 1):
+        assert p.kind == "dense" and b % p.elems == 0
+    elif b <= 32 * p.elems:
+        assert p.kind == "warp" and p.threads <= 256 and p.smem_bytes == 0
+        assert p.elems == min(tbh_mod.PLAN_ELEMS, d & -d)
+    else:
+        assert p.kind == "block" and p.threads * p.elems == b <= 32 * 1024
+        assert p.grid == m * d // b and p.smem_bytes == 4 * b <= 232_448
+        return
+    assert p.grid * p.threads >= chunks > (p.grid - 1) * p.threads
+
+
+def test_hadamard_plan_refuses_what_the_kernel_cannot_run():
+    with pytest.raises(ValueError, match="not divisible"):
+        tbh_mod.hadamard_plan(2, 48, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        tbh_mod.hadamard_plan(1, 65536, 65536)
+
+
+@pytest.fixture(scope="module")
+def plan_check_lib(tmp_path_factory):
+    """`csrc/plan_check.h` - the checks the C launches run on a plan -
+    compiled for the host, with a C entry for each check."""
+    import ctypes
+    import shutil
+    import subprocess
+    from repro_torch.kernels import _build
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a host C++ compiler is needed to compile csrc/plan_check.h"
+    d = tmp_path_factory.mktemp("plan_check")
+    (d / "shim.cpp").write_text(
+        '#include "plan_check.h"\n'
+        'extern "C" int bh_ok(long long m, long long d, long long b, int dense, int kind,'
+        ' int e, int threads, long long grid, long long smem) {'
+        ' return plan::hadamard_plan_ok(m, d, b, dense, kind, e, threads, grid, smem); }\n'
+        'extern "C" int i4_ok(long long m, long long n, long long k, int rows,'
+        ' long long k_rows, int splits, int threads, long long gx, long long gy,'
+        ' long long gz, long long smem, int ws) {'
+        ' return plan::int4_plan_ok(m, n, k, rows, k_rows, splits, threads, gx, gy, gz,'
+        ' smem, ws); }\n')
+    so = d / "libplan_check.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{_build.CSRC}",
+                    str(d / "shim.cpp"), "-o", str(so)], check=True)
+    lib = ctypes.CDLL(str(so))
+    L, I = ctypes.c_longlong, ctypes.c_int
+    lib.bh_ok.argtypes = [L, L, L, I, I, I, I, L, L]
+    lib.i4_ok.argtypes = [L, L, L, I, L, I, I, L, L, L, L, I]
+    return lib
+
+
+_I4_SHAPES = [(m, n, k) for m in (1, 4, 5, 16, 17, 32, 33, 64, 65, 130)
+              for n, k in ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192),
+                           (514, 250), (8, 64))]
+
+
+def test_int4_plans_pass_the_c_launch_check(plan_check_lib):
+    """Every plan `int4_plan` makes is one the C launch accepts, and each
+    plan with one field off by a step is refused."""
+    for m, n, k in _I4_SHAPES:
+        p = int4_plan(m, n, k)
+        fields = dict(rows=p.rows, k_rows=p.k_rows, splits=p.splits, threads=p.threads,
+                      gx=p.grid[0], gy=p.grid[1], gz=p.grid[2],
+                      smem=p.smem_bytes, ws=1)
+        assert plan_check_lib.i4_ok(m, n, k, *fields.values()) == 1, (m, n, k, p)
+        for key in fields:
+            if key == "ws" and p.splits == 1:
+                continue
+            bad = {**fields, key: fields[key] + (1 if key != "ws" else -1)}
+            assert plan_check_lib.i4_ok(m, n, k, *bad.values()) == 0, (m, n, k, key)
+
+
+def test_hadamard_plans_pass_the_c_launch_check(plan_check_lib):
+    kinds = {"warp": 0, "block": 1, "dense": 2}
+    for m in (1, 4, 37):
+        for d, bs in ((8192, (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 2048, 8192)),
+                      (240, (12, 20, 4)), (2304, (768,)), (18, (2,)), (32768, (32768,))):
+            for b in bs:
+                p = tbh_mod.hadamard_plan(m, d, b)
+                f = dict(dense=int(p.kind == "dense"), kind=kinds[p.kind], e=p.elems,
+                         threads=p.threads, grid=p.grid, smem=p.smem_bytes)
+                assert plan_check_lib.bh_ok(m, d, b, *f.values()) == 1, (m, d, b, p)
+                for key in ("kind", "e", "threads", "grid", "smem", "dense"):
+                    bad = {**f, key: {"e": 3, "dense": 1 - f["dense"]}.get(key, f[key] + 1)}
+                    assert plan_check_lib.bh_ok(m, d, b, *bad.values()) == 0, (m, d, b, key)
+
+
+# A word-level emulation of `csrc/int4_matmul.cu`'s arithmetic: the byte
+# transpose (__byte_perm), the mask-and-xor to offset codes w + 8, the
+# even/odd activation words, the -8 * rowsum correction, split by split, and
+# the mma.sync m16n8k32 fragment layouts of the PTX ISA with the kernel's
+# swizzled shared-memory reads.
+
+def _bp(x, y, sel):
+    """__byte_perm(x, y, sel) on uint32 arrays (selector nibbles 0-7)."""
+    src = (np.asarray(y, np.uint64) << np.uint64(32)) | np.asarray(x, np.uint64)
+    out = np.zeros(np.broadcast(x, y).shape, np.uint64)
+    for i in range(4):
+        sb = np.uint64(8 * ((sel >> (4 * i)) & 7))
+        out |= ((src >> sb) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _transpose4(r0, r1, r2, r3):
+    t0, t1 = _bp(r0, r1, 0x5140), _bp(r0, r1, 0x7362)
+    t2, t3 = _bp(r2, r3, 0x5140), _bp(r2, r3, 0x7362)
+    return [_bp(t0, t2, 0x5410), _bp(t0, t2, 0x7632), _bp(t1, t3, 0x5410),
+            _bp(t1, t3, 0x7632)]
+
+
+def _unpack8(u):
+    u = np.asarray(u, np.uint32)
+    return ((u & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808),
+            ((u >> np.uint32(4)) & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808))
+
+
+def _s8(word):
+    """The four signed bytes of uint32 words -> int64 [..., 4]."""
+    b = (np.asarray(word, np.uint32)[..., None] >> np.arange(0, 32, 8, dtype=np.uint32)) & 0xFF
+    b = b.astype(np.int64)
+    return np.where(b >= 128, b - 256, b)
+
+
+def _words(byte_rows):
+    """uint8 [..., 4j] -> uint32 [..., j] little-endian words."""
+    return np.ascontiguousarray(byte_rows).view(np.uint32)
+
+
+def _act_words(qa, m0, rows, k0):
+    """Even and odd activation words of K k0 .. k0+7 for `rows` rows from m0
+    (zero past the edges): [rows] uint32 each."""
+    m, k = qa.shape
+    raw = np.zeros((rows, 8), np.uint8)
+    r_hi, k_hi = min(m, m0 + rows), min(k, k0 + 8)
+    if r_hi > m0 and k_hi > k0:
+        raw[:r_hi - m0, :k_hi - k0] = qa[m0:r_hi, k0:k_hi].view(np.uint8)
+    lo, hi = _words(raw[:, :4])[:, 0], _words(raw[:, 4:])[:, 0]
+    return _bp(lo, hi, 0x6420), _bp(lo, hi, 0x7531)
+
+
+def _mma(a_frags, b_frags):
+    """mma.sync.m16n8k32.row.col s8: per-lane fragments as the PTX ISA lays
+    them out (lane = 4 * groupID + threadID_in_group) -> per-lane C [32, 4]."""
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for reg in range(4):
+            row = g + 8 * (reg % 2)
+            col = 4 * t + 16 * (reg // 2)
+            A[row, col:col + 4] = _s8(a_frags[lane][reg])
+        for reg in range(2):
+            B[4 * t + 16 * reg:4 * t + 16 * reg + 4, g] = _s8(b_frags[lane][reg])
+    C = A @ B
+    return [[C[lane // 4 + 8 * (i // 2), 2 * (lane % 4) + i % 2] for i in range(4)]
+            for lane in range(32)]
+
+
+def _emulate_mma(qa, wp, p):
+    """The tensor-core kernel, block by block, warp by warp, lane by lane:
+    shared-memory stages as `load_stage` fills them (weight chunks swizzled),
+    fragments as the compute loop reads them, C scattered as the epilogue
+    stores it (n8 tile j, column i -> 4 i + j)."""
+    m, k = qa.shape
+    k2, n = wp.shape
+    out = np.zeros((m, n), np.int64)
+    qa_u8 = qa.view(np.uint8)
+    for bz in range(p.grid[2]):
+        for bx in range(p.grid[0]):
+            m0, nt0 = bz * p.rows, bx * 128
+            for y in range(p.splits):
+                kr0 = y * p.k_rows
+                nrows = min(p.k_rows, k2 - kr0)
+                kend = 2 * (kr0 + nrows)
+                acc = {}
+                for kt in range(-(-nrows // 64)):
+                    rbase = kr0 + 64 * kt
+                    bs = np.zeros(64 * 128, np.uint8)
+                    for r in range(64):
+                        for ch in range(8):
+                            col = nt0 + 16 * ch
+                            valid = max(0, min(16, n - col)) if rbase + r < kr0 + nrows else 0
+                            dst = r * 128 + ((ch ^ (((r >> 2) & 3) << 1)) << 4)
+                            if valid:
+                                bs[dst:dst + valid] = wp[rbase + r, col:col + valid]
+                    as_ = np.zeros((p.rows, 160), np.uint8)
+                    for r in range(min(p.rows, m - m0)):
+                        kk = 2 * rbase
+                        valid = max(0, min(128, kend - kk, k - kk))
+                        as_[r, :valid] = qa_u8[m0 + r, kk:kk + valid]
+                    for wm in range(p.rows // 32):
+                        for wn in range(4):
+                            for ks in range(4):
+                                a_fr, b_fr = {}, {}
+                                for lane in range(32):
+                                    g, t = lane // 4, lane % 4
+                                    grp = 4 * ks + t
+                                    for mt in range(2):
+                                        r = 32 * wm + 16 * mt + g
+                                        lo = _words(as_[r, 8 * grp:8 * grp + 8])
+                                        hi = _words(as_[r + 8, 8 * grp:8 * grp + 8])
+                                        a_fr[mt, lane] = [_bp(lo[0], lo[1], 0x6420),
+                                                          _bp(hi[0], hi[1], 0x6420),
+                                                          _bp(lo[0], lo[1], 0x7531),
+                                                          _bp(hi[0], hi[1], 0x7531)]
+                                    rw = []
+                                    for q in range(4):
+                                        row, ch = 4 * grp + q, 2 * wn + (g >> 2)
+                                        at = row * 128 + ((ch ^ (((row >> 2) & 3) << 1)) << 4) \
+                                            + 4 * (g & 3)
+                                        rw.append(_words(bs[at:at + 4])[0])
+                                    for j, col in enumerate(_transpose4(*rw)):
+                                        b_fr[j, lane] = _unpack8(col)
+                                ones = [(0x01010101, 0x01010101)] * 32
+                                for mt in range(2):
+                                    af = [a_fr[mt, lane] for lane in range(32)]
+                                    rsum = _mma(af, ones)
+                                    for j in range(4):
+                                        c = _mma(af, [b_fr[j, lane] for lane in range(32)])
+                                        for lane in range(32):
+                                            g, t = lane // 4, lane % 4
+                                            for h in range(2):
+                                                for i in range(2):
+                                                    key = (32 * wm + 16 * mt + g + 8 * h,
+                                                           32 * wn + 4 * (2 * t + i) + j)
+                                                    acc[key] = acc.get(key, 0) + \
+                                                        c[lane][2 * h + i] - 8 * rsum[lane][2 * h]
+                for (r, c), v in acc.items():
+                    if m0 + r < m and nt0 + c < n:
+                        out[m0 + r, nt0 + c] += v
+    return out
+
+
+def _jax_integer_part(qa, wp):
+    m, n = qa.shape[0], wp.shape[1]
+    return np.asarray(jops.int4_matmul(
+        jnp.asarray(qa), jnp.ones((m, 1), jnp.float32), jnp.zeros((m, 1), jnp.float32),
+        jnp.asarray(wp), jnp.ones((n,), jnp.float32))).astype(np.int64)
+
+
+def test_int4_byte_transpose_and_offset_codes():
+    """The selectors of the unpack: packed rows 4g..4g+3 of a column give the
+    offset codes w + 8 of K 8g + (0, 2, 4, 6) and 8g + (1, 3, 5, 7), and the
+    activation words hold the codes of the same K."""
+    rng = np.random.default_rng(9)
+    codes = rng.integers(-8, 8, (8, 12)).astype(np.int8)
+    wp = N(tref.int4_pack(T(codes)))                       # [4, 12]
+    cols = _transpose4(*[_words(wp[q]) for q in range(4)])
+    for c in range(12):
+        ev, od = _unpack8(cols[c % 4][c // 4])
+        np.testing.assert_array_equal(_s8(ev), codes[0::2, c].astype(np.int64) + 8)
+        np.testing.assert_array_equal(_s8(od), codes[1::2, c].astype(np.int64) + 8)
+    qa = rng.integers(-128, 128, (3, 8)).astype(np.int8)
+    ae, ao = _act_words(qa, 0, 3, 0)
+    np.testing.assert_array_equal(_s8(ae), qa[:, 0::2])
+    np.testing.assert_array_equal(_s8(ao), qa[:, 1::2])
+
+
+@pytest.mark.parametrize("m,k,n,splits", [(17, 128, 128, 1), (40, 384, 136, 3),
+                                          (33, 250, 130, 2), (4, 128, 64, 1),
+                                          (5, 250, 514, 2), (16, 512, 40, 4),
+                                          (1, 64, 8, 1), (3, 1024, 16, 2)])
+def test_int4_mma_emulation_matches_jax_kernel(m, k, n, splits):
+    """The tensor-core kernel's staging, swizzle, fragments and interleaved
+    columns, emulated lane by lane on a plan with the given K splits,
+    against the JAX kernel's integer part: exact - at decode-sized M too,
+    where most of a tile's rows are zero."""
+    rng = np.random.default_rng(11)
+    qa = rng.integers(0, 16, (m, k)).astype(np.int8)
+    qa[0, :] = 15
+    wc = rng.integers(-8, 8, (k, n)).astype(np.int8)
+    wc[:, 0] = -8
+    wp = N(tref.int4_pack(T(wc)))
+    p = int4_plan(m, n, k)
+    k_rows = -(-(k // 2) // (64 * splits)) * 64
+    p = dataclasses.replace(p, k_rows=k_rows, splits=-(-(k // 2) // k_rows),
+                            grid=(p.grid[0], -(-(k // 2) // k_rows), p.grid[2]))
+    assert p.splits == splits
+    np.testing.assert_array_equal(_emulate_mma(qa, wp, p), _jax_integer_part(qa, wp))
