@@ -21,10 +21,14 @@ state. Phases print one JSON line each:
              the probed decode step against the unprobed one
     profile  (only with --profile) where a decode step's time goes, without
              and with the probe
+    ptxas    (only with --ptxas) registers, spills and shared memory of
+             every kernel, from a compile of its own (also when the library
+             was already built)
     sweep    (only with --sweep) the attention kernel under other launch
              plans (block rows, warps per block, keys per tile), then
-             `int4_matmul` (target blocks, tile rows) and
-             `block_hadamard` (elements per thread, blocks) under theirs
+             `int4_matmul` (target blocks, tile rows), `block_hadamard`
+             (elements per thread, blocks) and `hadamard_quant` (slices per
+             row, elements per thread) under theirs
 
 then the card's `name, power.limit`, then one `{"kernels": [...]}` object
 with the per-kernel record of this run, then as the last line
@@ -172,6 +176,23 @@ def bound(nbytes: float, ops: float, peak_ops: float):
 # phase: kernels
 # ---------------------------------------------------------------------------
 
+def hadamard_quant_agrees(got, plain):
+    """The rule `hadamard_quant` is held to against its plain version:
+    scale to 1e-6 relative; zero equal (or off by one where min/s sits on a
+    rounding tie); codes equal except at rounding ties, which the
+    butterfly's different summation order can flip: at most 0.1 % of
+    entries, never by more than one step. -> (ok, scale relative error,
+    zero error, share of codes that differ)."""
+    (codes, s, z), (pc, ps, pz) = got, plain
+    s_err = float(((s - ps).abs() / ps.abs()).max())
+    z_err = float((z - pz).abs().max())
+    diff = (codes.to(torch.int32) - pc.to(torch.int32)).abs()
+    mism = float((diff != 0).float().mean())
+    ok = (s_err <= 1e-6 and z_err <= 1.0 and mism <= 1e-3
+          and int(diff.max()) <= 1 + int(z_err))
+    return ok, s_err, z_err, mism
+
+
 def check_hadamard_quant(rng, m, d, b, dtype):
     x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32) * 3.0)
     x[:, :: max(1, d // 16)] *= 12.0          # a few outlier channels
@@ -179,19 +200,25 @@ def check_hadamard_quant(rng, m, d, b, dtype):
     codes, s, z = HQ.hadamard_quant(x, b, bits=4)
     torch.cuda.synchronize()
     pc, ps, pz = HQ.hadamard_quant_plain(x, b, 4)
-    s_err = float(((s - ps).abs() / ps.abs()).max())
-    z_err = float((z - pz).abs().max())
-    diff = (codes.to(torch.int32) - pc.to(torch.int32)).abs()
-    mism = float((diff != 0).float().mean())
+    ok, s_err, z_err, mism = hadamard_quant_agrees((codes, s, z), (pc, ps, pz))
     deq = s * (codes.float() + z)
     pdeq = ps * (pc.float() + pz)
     err = float((deq - pdeq).abs().max())
-    # Pass rule: scale to 1e-6 relative; zero equal (or off by one where
-    # min/s sits on a rounding tie); codes equal except at rounding ties,
-    # which the butterfly's different summation order can flip: at most
-    # 0.1 % of entries, never by more than one step.
-    ok = (s_err <= 1e-6 and z_err <= 1.0 and mism <= 1e-3
-          and int(diff.max()) <= 1 + int(z_err))
+    # f32 input, power-of-two b: block_hadamard runs the same butterfly and
+    # the plain quantiser divides as the kernel does - bit-equal
+    exact = None
+    if dtype == torch.float32 and b & (b - 1) == 0:
+        wc, ws, wz = HQ.quantize_act_plain(BH.block_hadamard(x, b), 4)
+        exact = (bool(torch.equal(codes, wc)) and bool(torch.equal(s, ws))
+                 and bool(torch.equal(z, wz)))
+    # a NaN in one row: its scale is NaN, every other row as without it
+    bad = x.clone()
+    bad[m // 2, d // 3] = float("nan")
+    nc, ns, nz = HQ.hadamard_quant(bad, b, bits=4)
+    keep = torch.arange(m, device=DEV) != m // 2
+    nan_ok = (bool(ns[m // 2].isnan().all()) and bool(torch.equal(nc[keep], codes[keep]))
+              and bool(torch.equal(ns[keep], s[keep]))
+              and bool(torch.equal(nz[keep], z[keep])))
     xs = [x.clone() for _ in range(n_copies(x.numel() * x.element_size()))]
     fns = [lambda t=t: HQ.hadamard_quant(t, b, bits=4) for t in xs]
     ms, call_ms = device_ms(fns), time_ms(fns, 50)
@@ -200,10 +227,16 @@ def check_hadamard_quant(rng, m, d, b, dtype):
     ops = m * d * (math.log2(b) if b > 1 else 0) + 4 * m * d
     bms, by = bound(nbytes, ops, PEAK_F32_FLOPS_S)
     return {"shape": f"x[{m},{d}] {str(dtype).split('.')[-1]} b={b} bits=4",
-            "ok": ok, "scale_rel_err": s_err, "zero_abs_err": z_err,
+            "ok": ok and exact is not False and nan_ok,
+            "plan": HQ.hadamard_quant_plan(m, d, b).__dict__,
+            "scale_rel_err": s_err, "zero_abs_err": z_err,
             "code_mismatch_share": mism, "max_abs_err": err,
+            "equal_to_block_hadamard_then_quantize": exact,
+            "nan_stays_in_its_row": nan_ok,
             "tolerance": "scale 1e-6 rel; codes differ at <= 0.1% of "
-                         "entries (rounding ties), by one step",
+                         "entries (rounding ties), by one step; f32 input "
+                         "with power-of-two b: bit-equal to block_hadamard "
+                         "+ the plain quantiser",
             "ms": ms, "call_ms": call_ms, "plain_ms": plain, "bound_ms": bms,
             "bound_by": by, "library_ms": None}
 
@@ -456,6 +489,12 @@ def phase_kernels():
             cases["hadamard_quant"].append(check_hadamard_quant(rng, m, d, b, dt))
     cases["hadamard_quant"].append(
         check_hadamard_quant(rng, 4, 3072, 12, torch.float32))   # Paley order
+    for m, d, b, dt in ((1, 2048, 1, torch.bfloat16),      # one row
+                        (37, 8192, 16, torch.bfloat16),    # ragged M
+                        (37, 8192, 16, torch.float32),
+                        (4, 19200, 64, torch.float32),     # > 48 KB rows, uneven slices
+                        (4, 8192, 8192, torch.float32)):   # one slice is the row
+        cases["hadamard_quant"].append(check_hadamard_quant(rng, m, d, b, dt))
     for m in (4, 32, 16, 17):
         for k, n in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)):
             cases["int4_matmul"].append(check_int4_matmul(rng, m, k, n))
@@ -526,6 +565,7 @@ def phase_sweep():
         fail("an attention plan disagrees with the plain version")
     sweep_int4()
     sweep_hadamard()
+    sweep_hadamard_quant()
 
 
 def _with_knobs(module, knobs: dict, fn):
@@ -609,6 +649,35 @@ def sweep_hadamard():
     emit("sweep_block_hadamard", ok=ok, runs=runs)
     if not ok:
         fail("a block_hadamard plan disagrees with the plain version")
+
+
+def sweep_hadamard_quant():
+    """`hadamard_quant` under other plans: slices (cluster size) per row and
+    elements per thread, at the decode and prefill shapes. Every plan must
+    agree with the plain version by the kernels phase's rule."""
+    rng = np.random.default_rng(9)
+    runs = []
+    for m, d, b in ((4, 2048, 1), (4, 8192, 16), (32, 2048, 1), (32, 8192, 16)):
+        x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32) * 3.0)
+        x = x.to(DEV).to(torch.bfloat16)
+        plain = HQ.hadamard_quant_plain(x, b, 4)
+        xs = [x.clone() for _ in range(n_copies(x.numel() * x.element_size()))]
+        for cluster in (1, 2, 4, 8):
+            for elems in (4, 8, 16):
+                knobs = {"PLAN_CLUSTER": cluster, "PLAN_ELEMS": elems}
+
+                def run():
+                    ok = hadamard_quant_agrees(HQ.hadamard_quant(x, b, bits=4), plain)[0]
+                    ms = device_ms([lambda t=t: HQ.hadamard_quant(t, b, bits=4)
+                                    for t in xs])
+                    return ok, ms, HQ.hadamard_quant_plan(m, d, b).__dict__
+                ok, ms, plan = _with_knobs(HQ, knobs, run)
+                runs.append({"shape": f"x[{m},{d}] bfloat16 b={b}", "knobs": knobs,
+                             "plan": plan, "ok": ok, "ms": ms})
+    ok = all(r["ok"] for r in runs)
+    emit("sweep_hadamard_quant", ok=ok, runs=runs)
+    if not ok:
+        fail("a hadamard_quant plan disagrees with the plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -898,7 +967,7 @@ def phase_parity(adapter):
 # torch.profiler's keys contain
 HAND_WRITTEN_KERNELS = {
     "int4_matmul": ("i4_mma_kernel",),
-    "hadamard_quant": ("hadamard_quant_kernel",),
+    "hadamard_quant": ("hq_cluster_kernel",),
     "paged_attention": ("paged_attention_kernel",),
     "combine_partials": ("combine_partials_kernel",),
     "block_hadamard": ("bh_warp_kernel", "bh_block_kernel", "bh_dense_kernel"),
@@ -1021,13 +1090,17 @@ def phase_device():
     return line
 
 
-def phase_build(verbose: bool):
-    _build.load(verbose=verbose)
+def phase_build(ptxas: bool):
+    _build.load()
     info = _build.BUILD_INFO
     emit("build", seconds=info["seconds"], library=info["library"],
          sources=[s.name for s in _build.sources()])
-    if verbose:
-        print(info["log"], file=sys.stderr)
+    if ptxas:
+        # compiled again for the report alone, so it comes also when the
+        # library was already built
+        rows, log = _build.ptxas_report()
+        emit("ptxas", kernels=rows)
+        print(log, file=sys.stderr)
 
 
 def main(argv=None):
@@ -1035,10 +1108,11 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also break a decode step down with torch.profiler")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time the attention, int4_matmul and "
-                         "block_hadamard kernels under other plans")
+                    help="also time the attention, int4_matmul, block_hadamard "
+                         "and hadamard_quant kernels under other plans")
     ap.add_argument("--ptxas", action="store_true",
-                    help="print what ptxas reports per kernel (stderr)")
+                    help="report ptxas -v per kernel (a JSON phase, the raw "
+                         "log on stderr)")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()

@@ -12,14 +12,18 @@ are passed at full width. The build happens at first use, never at import.
 The build directory is `$REPRO_TORCH_BUILD_DIR` if set, else `build/` at the
 root of the source checkout (beside `src/`), else `build/` in the working
 directory. A missing compiler, a failed compile or a failed load raises.
+`ptxas_report` compiles the sources once more, into a directory of its own,
+for `ptxas -v`'s per-kernel registers, spills and shared memory.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -33,7 +37,7 @@ _I = ctypes.c_int
 # function name -> argtypes (the stream is the last pointer of each)
 SIGNATURES = {
     "block_hadamard_launch": [_P, _I, _P, _P] + [_I] * 8 + [_P],
-    "hadamard_quant_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hadamard_quant_launch": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "int4_matmul_launch": [_P] * 9 + [_I] * 11 + [_P],
     "paged_attention_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P] + [_I] * 18 + [_P],
@@ -71,7 +75,32 @@ def _nvcc() -> str:
                        "(set NVCC or put the CUDA toolkit on PATH)")
 
 
-def build(verbose: bool = False) -> Path:
+def _compile(srcs: list[Path], out_dir: Path, extra: list[str]):
+    """Each source to an object file in `out_dir` by its own `nvcc`, all
+    started together -> (object paths, joined log); raises if one fails."""
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for s in srcs:
+        obj = out_dir / f"{s.stem}.{os.getpid()}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for s, p in zip(srcs, procs):
+        out, _ = p.communicate()
+        logs.append(f"== {s.name}\n{out}")
+        if p.returncode != 0:
+            failed.append(s.name)
+    log = "\n".join(logs)
+    if failed:
+        for o in objs:
+            o.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + log)
+    return objs, log
+
+
+def build() -> Path:
     """Compile (if this exact set of sources was not built yet) and return
     the path of the shared library."""
     srcs = sources()
@@ -87,29 +116,12 @@ def build(verbose: bool = False) -> Path:
     if lib.exists():
         BUILD_INFO.update(seconds=0.0, library=str(lib))
         return lib
-    nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    extra = ["-Xptxas", "-v"] if verbose else []
-    objs, procs = [], []
-    for s in srcs:
-        obj = out_dir / f"{s.stem}.{os.getpid()}.o"
-        objs.append(obj)
-        procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = [], []
-    for s, p in zip(srcs, procs):
-        out, _ = p.communicate()
-        logs.append(f"== {s.name}\n{out}")
-        if p.returncode != 0:
-            failed.append(s.name)
-    BUILD_INFO["log"] = "\n".join(logs)
-    if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n" + BUILD_INFO["log"])
+    objs, BUILD_INFO["log"] = _compile(srcs, out_dir, [])
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+        [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for o in objs:
         o.unlink(missing_ok=True)
@@ -120,11 +132,48 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
-def load(verbose: bool = False) -> ctypes.CDLL:
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def ptxas_report() -> tuple[list[dict], str]:
+    """Compile every source with `-Xptxas -v` into a temporary directory
+    under the build directory (the loaded library is left as it is) ->
+    (one record per kernel: its name, demangled where the toolkit's
+    `cu++filt` is there; registers, spill bytes, static shared memory; the
+    raw log)."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir, prefix="ptxas.") as tmp:
+        _, log = _compile(sources(), Path(tmp), ["-Xptxas", "-v"])
+    rows, cur, source = [], None, None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line[3:]
+        elif (hit := _PTXAS_ENTRY.search(line)):
+            cur = {"source": source, "function": hit.group(1)}
+            rows.append(cur)
+        elif cur is not None and (hit := _PTXAS_SPILL.search(line)):
+            cur.update(spill_stores=int(hit.group(1)), spill_loads=int(hit.group(2)))
+        elif cur is not None and (hit := _PTXAS_USED.search(line)):
+            cur.update(registers=int(hit.group(1)),
+                       smem_bytes=int(hit.group(2) or 0))
+    filt = Path(_nvcc()).with_name("cu++filt")
+    if rows and filt.exists():
+        names = subprocess.run([str(filt)], input="\n".join(r["function"] for r in rows),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, name in zip(rows, names):
+                r["function"] = name
+    return rows, log
+
+
+def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build(verbose)))
+        lib = ctypes.CDLL(str(build()))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

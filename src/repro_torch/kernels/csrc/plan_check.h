@@ -1,6 +1,7 @@
-// Launch-plan checks of block_hadamard.cu and int4_matmul.cu.
+// Launch-plan checks of block_hadamard.cu, hadamard_quant.cu and int4_matmul.cu.
 //
 // The plans are computed in Python (`kernels/block_hadamard.py::hadamard_plan`,
+// `kernels/hadamard_quant.py::hadamard_quant_plan`,
 // `kernels/int4_matmul.py::int4_plan`); each C launch calls the check below
 // first and refuses (cudaErrorInvalidValue) a plan that does not match the
 // geometry its kernels are written for. Plain C++ with no CUDA header, so the
@@ -38,6 +39,45 @@ inline bool hadamard_plan_ok(long long m, long long d, long long b, bool dense_o
   if (kind == BH_DENSE)
     return !pow2(b) && dense_operand && e <= 4 && b % e == 0 && threads <= 256 &&
            smem == 0 && cover >= chunks && cover - threads < chunks;
+  return false;
+}
+
+// ---- hadamard_quant -----------------------------------------------------------
+
+// One row of x [m, d] is cut into `cluster` slices, one thread block each, the
+// row's blocks one thread-block cluster. A slice holds whole units: a unit is
+// b elements for the dense kind (e divides b) and max(b, e) for a power of two
+// (whole b-blocks and whole E-chunks). The first (d / unit) % cluster slices
+// hold one unit more than the rest; every slice holds at least one.
+constexpr int HQ_MAX_CLUSTER = 8;               // the portable cluster size
+constexpr long long HQ_SMEM_LIMIT = 232448 - 4096;   // dynamic; the rest is static
+
+inline long long hq_unit(long long b, int e, int kind) {
+  return kind == BH_DENSE ? b : (b > e ? b : e);
+}
+
+// kind as for block_hadamard (registers + shuffles, shared-memory rounds,
+// dense operand), e elements per thread, `threads` per block (the widest
+// slice's chunks, in whole warps), `grid` = m * cluster blocks, `smem`
+// dynamic bytes (the widest slice in f32 for the shared-memory kind).
+inline bool hadamard_quant_plan_ok(long long m, long long d, long long b,
+                                   bool dense_operand, int kind, int e, int threads,
+                                   int cluster, long long grid, long long smem) {
+  if (m <= 0 || d <= 0 || b <= 0 || d % b || !pow2(e) || e > 32 || threads <= 0 ||
+      threads % 32 || threads > 1024 || !pow2(cluster) || cluster > HQ_MAX_CLUSTER ||
+      grid != m * cluster)
+    return false;
+  const long long unit = hq_unit(b, e, kind);
+  if (unit % e || d % unit || d / unit < cluster) return false;
+  const long long slice = cdiv(d / unit, cluster) * unit;   // the widest slice
+  if (threads != cdiv(slice / e, 32) * 32) return false;
+  if (kind == BH_WARP)
+    return pow2(b) && !dense_operand && b <= 32LL * e && smem == 0;
+  if (kind == BH_BLOCK)
+    return pow2(b) && !dense_operand && (e == 8 || e == 16 || e == 32) && b > 32LL * e &&
+           smem == 4 * slice && smem <= HQ_SMEM_LIMIT;
+  if (kind == BH_DENSE)
+    return !pow2(b) && dense_operand && e <= 4 && smem == 0;
   return false;
 }
 

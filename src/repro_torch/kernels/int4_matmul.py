@@ -147,9 +147,16 @@ def int4_plan(m: int, n: int, k: int) -> Int4Plan:
 
 
 # Per device: the int32 split workspace and its tile counters, zero between
-# calls (each launch leaves them zero). One per device: calls on a device
-# must not run concurrently on two streams.
+# calls (each launch leaves them zero). One pair per device is current:
+# calls on a device must not run concurrently on two streams. A pair, once
+# handed to a launch, lives as long as the process: a call that needs more
+# allocates a larger pair and retires the old one to `_RETIRED`, never to
+# the allocator, because a CUDA graph captured earlier still launches into
+# the old pointers; the old pair stays zero (every launch leaves it so), so
+# the graph's replays and the new eager calls each have a valid pair. The
+# pair cannot grow during a capture (the allocation would belong to it).
 _WORKSPACE: dict = {}
+_RETIRED: list = []
 
 
 def _workspace(dev: torch.device, n_ws: int, n_cnt: int):
@@ -160,6 +167,8 @@ def _workspace(dev: torch.device, n_ws: int, n_cnt: int):
             raise RuntimeError(
                 "int4_matmul: its split workspace must be allocated before "
                 "CUDA-graph capture; run the call once outside the capture")
+        if have is not None:
+            _RETIRED.append(have)
         n_ws = max(n_ws, have[0].numel() if have else 0)
         n_cnt = max(n_cnt, have[1].numel() if have else 0)
         have = _WORKSPACE[key] = (

@@ -45,6 +45,139 @@ def test_hadamard_quant_kernel(dev, d, b, dtype):
     assert float((diff != 0).float().mean()) <= 1e-3 and int(diff.max()) <= 1
 
 
+def _hq_input(dev, m, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32) * 3)
+    x[:, ::29] *= 12.0
+    return x.to(dev).to(dtype)
+
+
+def _hq_close_to_plain(x, b, codes, s, z):
+    """The rule against the plain version (a dense product): scale to
+    1e-6 relative, codes equal but at rounding ties of the two summation
+    orders (at most 0.1 % of entries, one step)."""
+    pc, ps, pz = HQ.hadamard_quant_plain(x, b)
+    torch.testing.assert_close(s, ps, rtol=1e-6, atol=0)
+    zd = float((z - pz).abs().max())
+    assert zd <= 1.0
+    diff = (codes.int() - pc.int()).abs()
+    assert float((diff != 0).float().mean()) <= 1e-3 and int(diff.max()) <= 1 + int(zd)
+
+
+def _hq_equal_to_block_hadamard(x, b, codes, s, z):
+    """Both kernels run one butterfly, and the plain quantiser divides as the
+    kernel does: codes, scale and zero bit-equal (f32 input)."""
+    wc, ws, wz = HQ.quantize_act_plain(BH.block_hadamard(x, b))
+    assert torch.equal(codes, wc) and torch.equal(s, ws) and torch.equal(z, wz)
+
+
+# (m, d, b): every plan kind - registers + shuffles, shared-memory rounds
+# (b > 32 E), dense operand (Paley) - at each cluster size the plan takes
+# (8, 4 and 2 slices a row, and 1: a plain launch), uneven slices
+HQ_CASES = [(1, 2048, 1), (4, 2048, 1), (4, 8192, 16), (32, 8192, 16), (37, 8192, 16),
+            (37, 2048, 32), (4, 19200, 64), (37, 19200, 64), (4, 18, 2), (9, 240, 4),
+            (4, 8192, 512), (4, 8192, 8192), (3, 32768, 32768), (2, 4096, 2048),
+            (4, 3072, 12), (37, 19200, 12), (4, 2304, 768), (5, 240, 20), (200, 2048, 16)]
+
+
+@pytest.mark.parametrize("m,d,b", HQ_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hadamard_quant_cluster_kernel(dev, m, d, b, dtype):
+    x = _hq_input(dev, m, d, dtype, m + d + b)
+    before = HQ.LAUNCHES["hadamard_quant"]
+    codes, s, z = kops.hadamard_quant(x, b)
+    assert HQ.LAUNCHES["hadamard_quant"] == before + 1
+    assert codes.shape == x.shape and s.shape == z.shape == (m, 1)
+    _hq_close_to_plain(x, b, codes, s, z)
+    if dtype == torch.float32 and b & (b - 1) == 0:
+        _hq_equal_to_block_hadamard(x, b, codes, s, z)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("elems", [4, 8, 16])
+@pytest.mark.parametrize("m,d,b", [(4, 2048, 1), (4, 8192, 16), (32, 8192, 16),
+                                   (4, 19200, 64)])
+def test_hadamard_quant_sweep_plans(dev, monkeypatch, m, d, b, cluster, elems):
+    """The plans `chip_smoke.py --sweep` times, each bit-equal to the
+    butterfly of block_hadamard + the plain quantiser. A row that does not
+    fit the fixed cluster at E elements a thread takes a larger E."""
+    monkeypatch.setattr(HQ, "PLAN_CLUSTER", cluster)
+    monkeypatch.setattr(HQ, "PLAN_ELEMS", elems)
+    p = HQ.hadamard_quant_plan(m, d, b)
+    assert p.cluster == cluster and p.elems >= elems
+    x = _hq_input(dev, m, d, torch.float32, 7)
+    codes, s, z = kops.hadamard_quant(x, b)
+    _hq_equal_to_block_hadamard(x, b, codes, s, z)
+
+
+@pytest.mark.parametrize("m,d,b", [(4, 2048, 1), (4, 8192, 16), (37, 19200, 64),
+                                   (4, 8192, 8192), (4, 3072, 12)])
+def test_hadamard_quant_nan_stays_in_its_row(dev, m, d, b):
+    """A NaN makes its row's scale NaN; every other row's codes, scale and
+    zero are bit-equal to the run without it: a cluster never reads across
+    rows."""
+    x = _hq_input(dev, m, d, torch.float32, 9)
+    clean = kops.hadamard_quant(x, b)
+    bad = x.clone()
+    bad[m // 2, d - 3] = float("nan")
+    dirty = kops.hadamard_quant(bad, b)
+    assert bool(dirty[1][m // 2].isnan().all())
+    keep = torch.arange(m, device=dev) != m // 2
+    for got, want in zip(dirty, clean):
+        assert torch.equal(got[keep], want[keep])
+
+
+def test_hadamard_quant_graph_replay(dev):
+    """The cluster launch captured in a CUDA graph, replayed on new input
+    written into the captured buffer."""
+    x = _hq_input(dev, 4, 8192, torch.bfloat16, 10)
+    kops.hadamard_quant(x, 16)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kops.hadamard_quant(x, 16)
+    for seed in (11, 12):
+        x.copy_(_hq_input(dev, 4, 8192, torch.bfloat16, seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = kops.hadamard_quant(x, 16)
+        for got, w in zip(out, want):
+            assert torch.equal(got, w)
+
+
+def test_hadamard_quant_misaligned_and_strided_input(dev):
+    base = _hq_input(dev, 1, 4 * 2048 + 1, torch.bfloat16, 13)
+    x = base[0, 1:].view(4, 2048)
+    assert x.data_ptr() % 16
+    codes, s, z = kops.hadamard_quant(x, 16)
+    _hq_close_to_plain(x, 16, codes, s, z)
+    xt = _hq_input(dev, 2048, 4, torch.float32, 14).t()
+    codes, s, z = kops.hadamard_quant(xt, 16)
+    _hq_equal_to_block_hadamard(xt.contiguous(), 16, codes, s, z)
+
+
+def test_hadamard_quant_launch_refuses_a_plan_that_disagrees(dev):
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    x = torch.zeros((4, 2048), dtype=torch.float32, device=dev)
+    codes = torch.empty((4, 2048), dtype=torch.int8, device=dev)
+    sz = torch.empty((2, 4), dtype=torch.float32, device=dev)
+    p = HQ.hadamard_quant_plan(4, 2048, 16)
+
+    def call(**change):
+        a = {"kind": 0, "elems": p.elems, "threads": p.threads, "cluster": p.cluster,
+             "grid": p.grid, "smem": p.smem_bytes, **change}
+        return lib.hadamard_quant_launch(x.data_ptr(), 0, None, codes.data_ptr(),
+                                         sz[0].data_ptr(), sz[1].data_ptr(), 4, 2048, 16, 4,
+                                         *a.values(), torch.cuda.current_stream().cuda_stream)
+
+    assert call() == 0
+    for change in ({"kind": 1}, {"elems": 4}, {"threads": p.threads + 32},
+                   {"cluster": 16, "grid": 64}, {"grid": p.grid + 1}, {"smem": 16}):
+        assert call(**change) != 0, change
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 64, 8), (4, 2048, 512), (37, 250, 514),
                                    (130, 512, 1024),
                                    # decode- and prefill-sized M, ragged tiles
@@ -113,6 +246,47 @@ def test_int4_matmul_graph_replay(dev, m, k, n):
         torch.cuda.synchronize()
         assert torch.equal(out, want)
     assert torch.equal(_integer_part(qa, wp), want)
+
+
+def test_int4_matmul_graph_keeps_its_workspace(dev, monkeypatch):
+    """A graph captured at M = 4; then an eager call at M = 32 grows the
+    split workspace, and tensors of the old pair's sizes are allocated and
+    filled - until one lands on the old pair's memory, if the allocator has
+    it back. The replays must still give the eager result bit for bit and
+    leave those tensors alone: the old pair stays the graph's."""
+    monkeypatch.setattr(I4, "_WORKSPACE", {})
+    rng = np.random.default_rng(8)
+    k, n = 2048, 8192
+    qa = torch.from_numpy(rng.integers(0, 16, (4, k)).astype(np.int8)).to(dev)
+    wp = torch.from_numpy(rng.integers(0, 256, (k // 2, n)).astype(np.uint8)).to(dev)
+    assert I4.int4_plan(4, n, k).splits > 1 and I4.int4_plan(32, n, k).splits > 1
+    want = _integer_part(qa, wp)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _integer_part(qa, wp)
+    key = torch.cuda.current_device()
+    old_ws, old_cnt = I4._WORKSPACE[key]
+    qa32 = torch.from_numpy(rng.integers(0, 16, (32, k)).astype(np.int8)).to(dev)
+    want32 = qa32.double() @ I4.int4_unpack(wp).double()
+    assert torch.equal(_integer_part(qa32, wp).double(), want32)
+    assert I4._WORKSPACE[key][0].numel() > old_ws.numel()      # it grew
+    sizes = (old_ws.numel(), old_cnt.numel())
+    old_ptrs = {old_ws.data_ptr(), old_cnt.data_ptr()}
+    del old_ws, old_cnt
+    pattern = 0x5A5A5A5A
+    fills = []
+    for _ in range(256):
+        fills += [torch.full((n_,), pattern, dtype=torch.int32, device=dev) for n_ in sizes]
+        if old_ptrs & {f.data_ptr() for f in fills[-2:]}:
+            break
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert all(bool((f == pattern).all()) for f in fills)
+    assert torch.equal(_integer_part(qa32, wp).double(), want32)
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 512, 256), (33, 512, 256)])

@@ -24,6 +24,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import block_hadamard as tbh_mod
+from repro_torch.kernels import hadamard_quant as thq_mod
 from repro_torch.kernels import int4_matmul as ti4_mod
 from repro_torch.kernels.int4_matmul import int4_colsum, int4_plan
 
@@ -609,7 +610,11 @@ def plan_check_lib(tmp_path_factory):
         ' long long k_rows, int splits, int threads, long long gx, long long gy,'
         ' long long gz, long long smem, int ws) {'
         ' return plan::int4_plan_ok(m, n, k, rows, k_rows, splits, threads, gx, gy, gz,'
-        ' smem, ws); }\n')
+        ' smem, ws); }\n'
+        'extern "C" int hq_ok(long long m, long long d, long long b, int dense, int kind,'
+        ' int e, int threads, int cluster, long long grid, long long smem) {'
+        ' return plan::hadamard_quant_plan_ok(m, d, b, dense, kind, e, threads, cluster,'
+        ' grid, smem); }\n')
     so = d / "libplan_check.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{_build.CSRC}",
                     str(d / "shim.cpp"), "-o", str(so)], check=True)
@@ -617,6 +622,7 @@ def plan_check_lib(tmp_path_factory):
     L, I = ctypes.c_longlong, ctypes.c_int
     lib.bh_ok.argtypes = [L, L, L, I, I, I, I, L, L]
     lib.i4_ok.argtypes = [L, L, L, I, L, I, I, L, L, L, L, I]
+    lib.hq_ok.argtypes = [L, L, L, I, I, I, I, I, L, L]
     return lib
 
 
@@ -654,6 +660,188 @@ def test_hadamard_plans_pass_the_c_launch_check(plan_check_lib):
                 for key in ("kind", "e", "threads", "grid", "smem", "dense"):
                     bad = {**f, key: {"e": 3, "dense": 1 - f["dense"]}.get(key, f[key] + 1)}
                     assert plan_check_lib.bh_ok(m, d, b, *bad.values()) == 0, (m, d, b, key)
+
+
+# -------------------- hadamard_quant's cluster plan and arithmetic --------------------
+
+_HQ_D_B = [(8192, b) for b in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 2048, 8192)] + [
+    (240, 12), (240, 20), (240, 4), (2304, 768), (18, 2), (32768, 32768),
+    (19200, 64), (19200, 12)]
+
+
+def _hq_slices(d, b, p):
+    """(start, length) of each slice of a row, as the kernel cuts it: the
+    units (whole b-blocks and E-chunks) shared out, the first ones one more."""
+    unit = b if p.kind == "dense" else max(b, p.elems)
+    units = d // unit
+    q, extra = divmod(units, p.cluster)
+    return [((r * q + min(r, extra)) * unit, (q + (r < extra)) * unit)
+            for r in range(p.cluster)]
+
+
+@pytest.mark.parametrize("d,b", _HQ_D_B)
+@pytest.mark.parametrize("m", [1, 4, 37])
+def test_hadamard_quant_plan_covers_and_fits(m, d, b):
+    """Every element of every row is one thread's, once; each slice holds
+    whole b-blocks and whole E-chunks; a b-block of the shuffle kind lies in
+    one warp; the cluster is a portable size and tiles the grid by rows; the
+    threads and the shared memory fit one block."""
+    p = thq_mod.hadamard_quant_plan(m, d, b)
+    assert p.cluster in (1, 2, 4, 8) and p.grid == m * p.cluster
+    assert p.threads % 32 == 0 and p.threads <= 1024
+    assert p.smem_bytes + 4096 <= 232_448    # the static partials take the rest
+    assert p.kind == ("dense" if b & (b - 1) else "warp" if b <= 32 * p.elems else "block")
+    seen = np.zeros(d, np.int64)
+    widest = 0
+    for start, length in _hq_slices(d, b, p):
+        assert length > 0
+        for edge in (start, length):
+            assert edge % b == 0 and edge % p.elems == 0
+        widest = max(widest, length)
+        for t in range(p.threads):
+            if t * p.elems < length:
+                lo = start + t * p.elems
+                seen[lo:lo + p.elems] += 1
+                if p.kind == "warp" and b > p.elems:
+                    first = t - (lo % b) // p.elems        # the b-block's first thread
+                    assert first // 32 == (first + b // p.elems - 1) // 32
+    assert (seen == 1).all()
+    assert p.threads == -(-widest // p.elems // 32) * 32
+    assert p.smem_bytes == (4 * widest if p.kind == "block" else 0)
+
+
+def test_hadamard_quant_plans_pass_the_c_launch_check(plan_check_lib):
+    """Every plan `hadamard_quant_plan` makes is one the C launch accepts,
+    and each plan with one field off by a step is refused."""
+    kinds = {"warp": 0, "block": 1, "dense": 2}
+    for m in (1, 4, 37):
+        for d, b in _HQ_D_B:
+            p = thq_mod.hadamard_quant_plan(m, d, b)
+            f = dict(dense=int(p.kind == "dense"), kind=kinds[p.kind], e=p.elems,
+                     threads=p.threads, cluster=p.cluster, grid=p.grid,
+                     smem=p.smem_bytes)
+            assert plan_check_lib.hq_ok(m, d, b, *f.values()) == 1, (m, d, b, p)
+            for key in f:
+                bad = {**f, key: {"e": 3, "dense": 1 - f["dense"],
+                                  "cluster": 2 * f["cluster"] if f["cluster"] < 8 else 16
+                                  }.get(key, f[key] + 1)}
+                assert plan_check_lib.hq_ok(m, d, b, *bad.values()) == 0, (m, d, b, key)
+
+
+def test_hadamard_quant_plan_refuses_what_the_kernel_cannot_run(monkeypatch):
+    with pytest.raises(ValueError, match="not divisible"):
+        thq_mod.hadamard_quant_plan(2, 48, 32)
+    with pytest.raises(ValueError, match="does not fit"):
+        thq_mod.hadamard_quant_plan(1, 65536, 65536)      # a b-block past shared memory
+    with pytest.raises(ValueError, match="does not fit"):
+        thq_mod.hadamard_quant_plan(4, 12 * 4000, 12)     # 8 slices of > 1024 threads
+    with pytest.raises(ValueError, match="m >= 1"):
+        thq_mod.hadamard_quant_plan(0, 2048, 16)
+    monkeypatch.setattr(thq_mod, "PLAN_CLUSTER", 8)        # fewer units than slices
+    with pytest.raises(ValueError, match="does not fit"):
+        thq_mod.hadamard_quant_plan(4, 8192, 8192)
+    monkeypatch.setattr(thq_mod, "PLAN_CLUSTER", 1)        # the sweep's knobs
+    monkeypatch.setattr(thq_mod, "PLAN_ELEMS", 16)
+    p = thq_mod.hadamard_quant_plan(4, 8192, 16)
+    assert (p.cluster, p.elems, p.threads, p.grid) == (1, 16, 512, 4)
+
+
+def _nmin(a, b):
+    return a if (a != a or a < b) else b
+
+
+def _nmax(a, b):
+    return a if (a != a or a > b) else b
+
+
+def _emulate_hadamard_quant(x, b, bits, rng):
+    """`csrc/hadamard_quant.cu`'s arithmetic in numpy float32 for a power-of-
+    two b: the butterfly stage by stage (stride 1 first, (a, c) -> (a + c,
+    a - c)), one multiply by f32(1 / sqrt(b)), each slice's NaN-propagating
+    min / max, the slices' partials merged in a random order, the range
+    times f32(1 / levels), true f32 divisions, rint half to even, fmax /
+    fmin clipping (a NaN code becomes 0) and int8 storage."""
+    m, d = x.shape
+    f32 = np.float32
+    y = x.astype(f32).copy()
+    if b > 1:
+        s = 1
+        while s < b:
+            v = y.reshape(m, d // (2 * s), 2, s)
+            a, c = v[:, :, 0, :].copy(), v[:, :, 1, :].copy()
+            v[:, :, 0, :] = a + c
+            v[:, :, 1, :] = a - c
+            s *= 2
+        y = y * (f32(1.0) / np.sqrt(f32(b)))
+    p = thq_mod.hadamard_quant_plan(m, d, b)
+    lv = f32(2 ** bits - 1)
+    codes = np.zeros((m, d), np.int8)
+    scale = np.zeros((m, 1), f32)
+    zero = np.zeros((m, 1), f32)
+    for r in range(m):
+        parts = [(y[r, lo:lo + n].min(), y[r, lo:lo + n].max())
+                 for lo, n in _hq_slices(d, b, p)]
+        mn, mx = f32(np.inf), f32(-np.inf)
+        for i in rng.permutation(len(parts)):
+            mn, mx = _nmin(mn, parts[i][0]), _nmax(mx, parts[i][1])
+        s = np.maximum(f32(mx - mn) * (f32(1.0) / lv), np.finfo(f32).tiny)
+        z = np.rint(f32(mn / s))
+        q = np.rint((y[r] / s).astype(f32)) - z
+        q = np.fmin(np.fmin(np.fmax(q, f32(0)), lv), f32(127))
+        codes[r] = q.astype(np.int8)
+        scale[r, 0], zero[r, 0] = s, z
+    return codes, scale, zero
+
+
+@pytest.mark.parametrize("m,d,b,bits,dtype", [
+    (4, 2048, 1, 4, "bfloat16"),       # quantize_act on a decode step
+    (4, 8192, 16, 4, "bfloat16"),      # the online rotation on a decode step
+    (4, 8192, 16, 8, "float32"),
+    (32, 8192, 16, 4, "bfloat16"),     # a prefill chunk
+    (37, 2048, 32, 4, "float32"),
+    (3, 19200, 64, 4, "float32"),      # uneven slices
+    (2, 4096, 512, 4, "float32")])     # shared-memory rounds
+def test_hadamard_quant_emulation_matches_jax_kernel(m, d, b, bits, dtype):
+    """The kernel's arithmetic, emulated, against the JAX kernel in
+    interpret mode, within `test_hadamard_quant_matches_jax_kernel`'s
+    tolerance: scale and zero to 1e-5 relative, dequantised values within
+    one scale step, codes different at no more than 0.5 % of the entries
+    (the butterfly and the reference's dense product sum in other orders)."""
+    rng = np.random.default_rng(m * d + b)
+    x = (rng.standard_normal((m, d)) * 3).astype(np.float32)
+    x[:, ::37] *= 10.0
+    xj = jnp.asarray(x, dtype)
+    x = np.array(xj.astype(jnp.float32))
+    if b == 1:
+        jc, js, jz = jops.quantize_act(xj, bits)
+    else:
+        jc, js, jz = jops.hadamard_quant(xj, b, bits=bits)
+    jc, js, jz = (np.asarray(a) for a in (jc, js, jz))
+    ec, es, ez = _emulate_hadamard_quant(x, b, bits, rng)
+    np.testing.assert_allclose(es, js, rtol=1e-5)
+    np.testing.assert_allclose(ez, jz, rtol=1e-5, atol=0)
+    deq_e = es * (ec.astype(np.float32) + ez)
+    deq_j = js * (jc.astype(np.float32) + jz)
+    assert np.all(np.abs(deq_e - deq_j) <= js * 1.0001)
+    assert np.mean(ec != jc) <= 5e-3
+    # the emulation's butterfly against the port's plain version: the same
+    # rotation, quantised by the same rule
+    pc, ps, pz = (N(t) for t in thq_mod.hadamard_quant_plain(T(x), b, bits))
+    np.testing.assert_allclose(es, ps, rtol=1e-5)
+    assert np.mean(ec != pc) <= 5e-3
+
+
+def test_hadamard_quant_emulation_nan_stays_in_its_row():
+    """A NaN makes its own row's scale NaN; the partials of other rows never
+    meet it, so their codes, scales and zeros are those of the clean run."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((4, 8192)) * 3).astype(np.float32)
+    clean = _emulate_hadamard_quant(x, 16, 4, rng)
+    x[2, 5000] = np.nan
+    dirty = _emulate_hadamard_quant(x, 16, 4, rng)
+    assert np.isnan(dirty[1][2, 0]) and not np.isnan(np.delete(dirty[1], 2, 0)).any()
+    for got, want in zip(dirty, clean):
+        np.testing.assert_array_equal(np.delete(got, 2, 0), np.delete(want, 2, 0))
 
 
 # A word-level emulation of `csrc/int4_matmul.cu`'s arithmetic: the byte
