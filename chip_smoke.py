@@ -14,7 +14,9 @@ state. Phases print one JSON line each:
 
     device   card name and power limit (nvidia-smi)
     build    seconds nvcc took
-    kernels  per kernel: error against the plain version, times, bound
+    kernels  per kernel: error against the plain version, times, bound; the
+             split merge (the reference's `_combine_kernel`) inside the
+             attention launch, bit-equal over 20 launches
     serve    the launcher at full width and depth, plain and observed, then
              two short runs
     parity   one prefill chunk and one decode step, kernels vs plain, and
@@ -95,7 +97,8 @@ KERNEL_META = {
     "combine_partials": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:352"},
+        "replaces": "src/repro/kernels/paged_attention.py:352",
+        "note": "folded into paged_attention.cu's last-arriving split"},
     "block_hadamard": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_hadamard.cu",
@@ -314,18 +317,29 @@ def make_pool(rng, n_layers, n_pages, t, kh, dh, fmt):
     return kv
 
 
-def check_attention(rng, label, fmt, b, s, lens, n_cols, theta):
+MERGE_LAUNCHES = 20     # launches of a split call that must agree bit for bit
+
+
+def check_attention(rng, label, fmt, b, s, lens, n_cols, theta, kv_splits=None,
+                    live_pool=False):
+    """The attention kernel against its plain version on one seeded case of
+    the served model's widths, then timed over 16 layers' pools. A split
+    call (the default splits at decode, or `kv_splits`) must launch once and
+    merge in that launch, and give one bit pattern over `MERGE_LAUNCHES`
+    launches. The pool holds a page per table column of every row, or with
+    `live_pool` only the live pages."""
     h, kh, dh, t, n_layers = 32, 8, 64, 16, 16
-    n_pages = 1 + b * n_cols
+    used = [-(-ln // t) for ln in lens]
+    n_pages = 1 + (sum(used) if live_pool else b * n_cols)
     pool = make_pool(rng, n_layers, n_pages, t, kh, dh, fmt)
     bits = {"bf16": None, "int8": 8, "int4": 4}[fmt]
     q = torch.from_numpy(rng.standard_normal((b, s, h, dh)).astype(np.float32)).to(DEV)
     q = q.to(torch.bfloat16)
     perm = rng.permutation(np.arange(1, n_pages))
+    offs = np.cumsum([0] + used)[:-1] if live_pool else np.arange(b) * n_cols
     bt = np.zeros((b, n_cols), np.int32)
-    for i, ln in enumerate(lens):
-        used = -(-ln // t)
-        bt[i, :used] = perm[i * n_cols:i * n_cols + used]
+    for i, u in enumerate(used):
+        bt[i, :u] = perm[offs[i]:offs[i] + u]
     bt = torch.from_numpy(bt).to(DEV)
     lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
     if s == 1:
@@ -334,21 +348,30 @@ def check_attention(rng, label, fmt, b, s, lens, n_cols, theta):
         qpos = torch.stack([torch.arange(ln - s, ln, dtype=torch.int32)
                             for ln in lens]).to(DEV)
     kw = dict(rope_theta=theta if bits else None, kv_bits=bits,
-              kv_group=dh if bits else None)
+              kv_group=dh if bits else None, kv_splits=kv_splits)
+    _, splits, _, split_cols = PA.resolve_tiling(s, kh, n_cols, kv_splits=kv_splits)
     layer = lambda l: {k_: v_[l] for k_, v_ in pool.items()}  # noqa: E731
     before = dict(PA.LAUNCHES)
     out = PA.paged_attention(q, layer(0), bt, qpos, lens_t, **kw)
     torch.cuda.synchronize()
     used_combine = PA.LAUNCHES["combine_partials"] > before["combine_partials"]
+    one_launch = (PA.LAUNCHES["paged_attention"] == before["paged_attention"] + 1
+                  and used_combine == (splits > 1))
     want = PA.paged_attention_plain(q, layer(0), bt, qpos, lens_t, **kw)
     err = float((out - want).abs().max())
     zero_rows_ok = all(bool((out[i] == 0).all()) for i, ln in enumerate(lens) if ln == 0)
     finite = bool(torch.isfinite(out).all())
+    # the splits finish in another order on every launch; the merge reads
+    # them in split order, so the output must not change by a bit
+    stable = None
+    if splits > 1:
+        stable = all(torch.equal(PA.paged_attention(q, layer(0), bt, qpos, lens_t, **kw), out)
+                     for _ in range(MERGE_LAUNCHES - 1))
     # Pass rule: 2e-5 absolute in f32 - the kernel sums the head dimension
     # and the keys in another order than the plain einsum, on the tensor
     # cores in the 3xTF32 split (f32 accuracy), and updates the softmax per
     # tile of pages instead of per page; both are f32 throughout.
-    ok = err <= 2e-5 and zero_rows_ok and finite
+    ok = err <= 2e-5 and zero_rows_ok and finite and one_launch and stable is not False
     fns = [lambda l=l: PA.paged_attention(q, layer(l), bt, qpos, lens_t, **kw)
            for l in range(n_layers)]
     ms, call_ms = device_ms(fns), time_ms(fns, 48)
@@ -379,9 +402,29 @@ def check_attention(rng, label, fmt, b, s, lens, n_cols, theta):
     bms, by = bound(nbytes, flops, PEAK_TF32_FLOPS_S)
     plan = PA.attention_plan(h // kh, s, dh, t, pool["k"].dtype,
                              group=dh if bits else None)
+    # the merge alone, as the reference's second kernel did it: the partials
+    # (m, l, acc of every split's rows) read once, `out` written once; its
+    # plain version on the plain walk's partials
+    merge = {}
+    if splits > 1:
+        parts = PA._partials_plain(q, layer(0), bt, qpos, lens_t, rope_theta=kw["rope_theta"],
+                                   kv_bits=bits, kv_group=kw["kv_group"], kv_splits=splits,
+                                   split_cols=split_cols)
+        m_p, l_p, acc_p = (torch.stack([p[i].reshape(b, h, s, *([dh] if i == 2 else []))
+                                        for p in parts], dim=1) for i in range(3))
+        mb = (m_p.numel() + l_p.numel() + acc_p.numel() + out.numel()) * 4
+        mbms, mby = bound(mb, 3.0 * acc_p.numel(), PEAK_F32_FLOPS_S)
+        merge = {"merge_bound_ms": mbms, "merge_bound_by": mby,
+                 "merge_plain_ms": time_ms([lambda: PA.combine_partials_plain(
+                     m_p, l_p, acc_p)], 20),
+                 "bit_equal_over_launches": stable, "launches_compared": MERGE_LAUNCHES}
     return {"shape": f"{label}: q[{b},{s},{h},{dh}] bf16, {fmt} pages T={t}, "
-                     f"lens={lens}, table {n_cols} cols",
+                     f"lens={lens}, table {n_cols} cols"
+                     + (f", kv_splits={kv_splits}" if kv_splits else ""),
             "ok": ok, "max_abs_err": err, "used_combine": used_combine,
+            "one_launch": one_launch, "splits": splits, **merge,
+            "pool_mib_per_layer": sum(v_[0].numel() * v_.element_size()
+                                      for v_ in pool.values()) / 2 ** 20,
             "plan": {"q_rows": plan.q_rows, "warps": plan.warps,
                      "key_warps": plan.key_warps, "threads": plan.threads,
                      "pages_per_tile": plan.pages_per_tile,
@@ -392,33 +435,6 @@ def check_attention(rng, label, fmt, b, s, lens, n_cols, theta):
             "bound_by": by, "library_ms": lib,
             "library": ("scaled_dot_product_attention on a slab gathered "
                         "beforehand" if lib is not None else None)}
-
-
-def check_combine(rng, b, ks, h, s, dh):
-    m = torch.from_numpy(rng.standard_normal((b, ks, h, s)).astype(np.float32) * 4).to(DEV)
-    l = torch.from_numpy(rng.uniform(0.5, 16, (b, ks, h, s)).astype(np.float32)).to(DEV)
-    acc = torch.from_numpy(rng.standard_normal((b, ks, h, s, dh)).astype(np.float32)).to(DEV)
-    m[:, ks // 2:] = -math.inf                  # dead splits
-    l[:, ks // 2:] = 0
-    acc[:, ks // 2:] = 0
-    m[b - 1] = -math.inf                        # a row with no live page
-    l[b - 1] = 0
-    acc[b - 1] = 0
-    out = PA.combine_partials(m, l, acc)
-    torch.cuda.synchronize()
-    want = PA.combine_partials_plain(m, l, acc)
-    err = float((out - want).abs().max())
-    ok = err <= 2e-5 and bool((out[b - 1] == 0).all()) and bool(torch.isfinite(out).all())
-    fns = [lambda: PA.combine_partials(m, l, acc)]
-    ms, call_ms = device_ms(fns), time_ms(fns, 100)
-    pms = time_ms([lambda: PA.combine_partials_plain(m, l, acc)], 20)
-    nbytes = (m.numel() + l.numel() + acc.numel() + out.numel()) * 4
-    bms, by = bound(nbytes, 3.0 * acc.numel(), PEAK_F32_FLOPS_S)
-    return {"shape": f"m,l[{b},{ks},{h},{s}] acc[...,{dh}]", "ok": ok,
-            "max_abs_err": err,
-            "tolerance": "2e-5 absolute (f32)", "ms": ms, "call_ms": call_ms,
-            "plain_ms": pms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
 def check_block_hadamard(rng, shape, b, dtype):
@@ -514,8 +530,20 @@ def phase_kernels():
     cases["paged_attention"].append(check_attention(
         rng, "decode, 32-column table", "int4", 4, 1, [500, 0, 311, 129], 32,
         theta))
-    cases["combine_partials"].append(check_combine(rng, 4, 2, 32, 1, 64))
-    cases["combine_partials"].append(check_combine(rng, 4, 8, 32, 1, 64))
+    # long contexts: 4096 cached tokens and a 256-column table, so 8 splits
+    # of 32 columns; the pools hold the live pages only (~10 MB a layer of
+    # int4 pages)
+    for fmt in ("int4", "bf16"):
+        cases["paged_attention"].append(check_attention(
+            rng, "decode, 256-column table", fmt, 4, 1, [4096, 0, 2900, 1500], 256,
+            theta, live_pool=True))
+    # the split merge in the kernel's last-arriving block (the reference's
+    # `_combine_kernel`): explicit 2 and 8 splits over 8 columns and 13 over
+    # 16 (splits 8-12 past the table), dead splits and a row of length 0
+    for ks, n_cols, lens in ((2, 8, [120, 0, 37, 113]), (8, 8, [120, 0, 37, 113]),
+                             (13, 16, [250, 0, 37, 113])):
+        cases["combine_partials"].append(check_attention(
+            rng, f"merge KS={ks}", "int4", 4, 1, lens, n_cols, theta, kv_splits=ks))
     if not cases["paged_attention"][0]["used_combine"]:
         fail("the decode attention case did not take the split path")
     bad = [(k, c["shape"]) for k, cs in cases.items() for c in cs if not c["ok"]]
@@ -964,12 +992,12 @@ def phase_parity(adapter):
 # ---------------------------------------------------------------------------
 
 # the device kernels of each hand-written kernel, by the names that
-# torch.profiler's keys contain
+# torch.profiler's keys contain; combine_partials has none of its own - the
+# split merge runs inside paged_attention_kernel, in its last-arriving split
 HAND_WRITTEN_KERNELS = {
     "int4_matmul": ("i4_mma_kernel",),
     "hadamard_quant": ("hq_cluster_kernel",),
     "paged_attention": ("paged_attention_kernel",),
-    "combine_partials": ("combine_partials_kernel",),
     "block_hadamard": ("bh_warp_kernel", "bh_block_kernel", "bh_dense_kernel"),
 }
 
@@ -1036,6 +1064,7 @@ def phase_profile(adapter):
             hand_written_launches_per_step={k: v / n
                                             for k, v in launches.items()},
             hand_written_device_ms_per_step=hand,
+            merged_inside={"combine_partials": "paged_attention_kernel"},
             int4_matmul_share_of_busy=hand["int4_matmul"] / busy_ms,
             top_device_kernels=[{"name": k[:90], "ms_per_step": us / 1e3 / n,
                                  "calls_per_step": c / n}
@@ -1063,19 +1092,24 @@ REPORTED = {
     "hadamard_quant": "x[4,8192] bfloat16 b=16 bits=4",
     "int4_matmul": "q_a[4,2048] w[1024,8192]",
     "paged_attention": "decode: q[4,1,32,64] bf16, int4 pages",
-    "combine_partials": "m,l[4,2,32,1]",
+    "combine_partials": "merge KS=2:",
     "block_hadamard": "x[4,1,8192] float32 b=16",
 }
 
 
 def kernel_record(cases, launches):
+    """One row per kernel at its `REPORTED` case. combine_partials has no
+    launch of its own: its `ms` and `call_ms` are of the one launch that
+    walks and merges, its bound and plain time those of the merge alone."""
     rows = []
     for name, meta in KERNEL_META.items():
         case = next(c for c in cases[name] if c["shape"].startswith(REPORTED[name]))
+        merge = name == "combine_partials"
         rows.append({"name": name, **meta, "launches": launches[name],
                      "max_abs_err": case["max_abs_err"], "ms": case["ms"],
-                     "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-                     "bound_by": case["bound_by"],
+                     "plain_ms": case["merge_plain_ms" if merge else "plain_ms"],
+                     "bound_ms": case["merge_bound_ms" if merge else "bound_ms"],
+                     "bound_by": case["merge_bound_by" if merge else "bound_by"],
                      "library_ms": case["library_ms"],
                      "library": case.get("library"), "shape": case["shape"],
                      "call_ms": case["call_ms"]})

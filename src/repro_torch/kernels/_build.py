@@ -39,9 +39,7 @@ SIGNATURES = {
     "block_hadamard_launch": [_P, _I, _P, _P] + [_I] * 8 + [_P],
     "hadamard_quant_launch": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "int4_matmul_launch": [_P] * 9 + [_I] * 11 + [_P],
-    "paged_attention_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _P] + [_I] * 18 + [_P],
-    "combine_partials_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "paged_attention_launch": [_P, _I, _P, _P, _I] + [_P] * 13 + [_I] * 19 + [_P],
 }
 
 _LIB = None

@@ -1,9 +1,9 @@
 // Block-table-native causal GQA attention over one layer's KV page pool,
-// plus the log-sum-exp combine of split partials.
+// with the log-sum-exp merge of split partials folded into the same launch.
 //
 // Replaces src/repro/kernels/paged_attention.py::paged_attention (body
 // `_kernel`, with `dequant_page`, `rope_page`, `page_update`, `finalize`)
-// and ::_combine_kernel.
+// and ::_combine_kernel (arithmetic `combine_partials`).
 //
 // Bound on an H100: bytes. Each live K/V page row is read once per query
 // group; at decode the queries and outputs are a few kilobytes beside them,
@@ -53,9 +53,15 @@
 //      per-warp scratch and reloaded in the A layout for P V.
 //   5. After the walk the key warps of a row group merge their (m, l, O) by
 //      log-sum-exp through shared memory, once per block.
-// With one split the block writes acc / max(l, 1e-30); with more it writes
-// (m, l, acc) partials for the combine kernel. A split with no live column
-// writes m = -inf, l = 0, acc = 0; a row of length 0 comes out as zeros.
+// With one split the block writes acc / max(l, 1e-30). With more it writes
+// its (m, l, acc) partial rows, then arrives at an int32 counter of its tile
+// (batch row, KV head, query block); the last split of the tile to arrive
+// merges the tile (`merge_tile`) and resets the counter, so one launch does
+// the whole call and the counters are zero again when it ends: the call can
+// be captured in a CUDA graph and replayed. The merge reads the partials in
+// split order 0..KS-1 whatever the arrival order, so its output does not
+// depend on scheduling. A split with no live column writes m = -inf, l = 0,
+// acc = 0 (and arrives like any other); a row of length 0 comes out as zeros.
 //
 // Against the plain walk (one online-softmax step per page, einsum products)
 // the softmax here updates per chunk of up to 64 keys of one warp, merges
@@ -66,6 +72,8 @@
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
+
+#include "plan_check.h"
 
 namespace {
 
@@ -186,7 +194,7 @@ __host__ __device__ __forceinline__ Layout make_layout(int dh, int t, int ppt, i
   L.off_freq = L.off_p + al16((size_t)L.cwarps * 16 * L.ps * 4);
   L.off_qpos = L.off_freq + al16((size_t)(dh / 2) * 4);
   L.off_used = L.off_qpos + al16((size_t)L.rows_pad * 4);
-  L.total = L.off_used + 16;  // all of the block's shared memory is here
+  L.total = L.off_used + 16;  // used columns, merge flag; all of the shared memory
   return L;
 }
 
@@ -226,10 +234,99 @@ struct PagedArgs {
   float* m_p;              // [B, splits, H, S]
   float* l_p;              // [B, splits, H, S]
   float* acc_p;            // [B, splits, H, S, Dh]
+  int* counters;           // [B * KH * query blocks] or more, zero on entry
   int b, s, h, kh, dh, t, n_cols, splits, split_cols, group;
   int q_rows, warps, key_warps, threads, ppt, ng, chunk;
   float code_off, sm_scale;
 };
+
+// The merge of one tile by its last-arriving split: every output pair (row
+// r of the block, d and d + 1) of the tile's live rows, one pair per thread
+// in turn, from the partials of splits 0..KS-1 in that order - op for op
+// the arithmetic of the reference's combine (`combine_partials`): the max of
+// the m's, weights exp(m - max) (exactly 0 for a split with m = -inf),
+// round-to-nearest products and sums, a denominator of at least 1e-30. The
+// merge sits on the launch's critical path, in one block on one SM whose
+// instruction cache has not seen this code since the last launch (every
+// other block exits before it): its time grows with its code as much as with
+// its round trips to L2. So a thread issues the loads of MERGE_CHUNK splits'
+// (m, l, acc) together before it uses any, and the chunk stays small: a
+// chunk of 2 was faster inside the decode step than chunks of 1, 4 and 8
+// (PERF.md). The other splits' partials were written by other SMs:
+// last_arrival's fences order them before these reads, which go to L2
+// (ld.global.cg) since L1 is not coherent across SMs. Rows past the group or
+// past S are not written.
+constexpr int MERGE_CHUNK = 2;
+
+__device__ __forceinline__ void merge_tile(const PagedArgs& a, int bi, int kh, int qb) {
+  const int g = a.h / a.kh;
+  const int ks = a.splits;
+  const size_t split_stride = (size_t)a.h * a.s;   // between one split's rows and the next's
+  for (Walk2 it(threadIdx.x, blockDim.x, a.dh / 2); it.r < g * a.q_rows; it.next()) {
+    const int gi = it.r / a.q_rows;
+    const int si = qb * a.q_rows + (it.r - gi * a.q_rows);
+    if (si >= a.s) continue;
+    const int hi = kh * g + gi;
+    const size_t row0 = ((size_t)bi * ks * a.h + hi) * a.s + si;
+    float mc[MERGE_CHUNK], lc[MERGE_CHUNK];
+    float2 ac[MERGE_CHUNK];
+    auto load = [&](int k0) {
+#pragma unroll
+      for (int k = 0; k < MERGE_CHUNK; ++k) {
+        if (k0 + k < ks) {
+          const size_t row = row0 + (size_t)(k0 + k) * split_stride;
+          mc[k] = __ldcg(a.m_p + row);
+          lc[k] = __ldcg(a.l_p + row);
+          ac[k] = __ldcg(reinterpret_cast<const float2*>(a.acc_p + row * a.dh) + it.c);
+        }
+      }
+    };
+    load(0);   // the first chunk's l and acc arrive while the max is taken
+    float mx = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < MERGE_CHUNK; ++k)
+      if (k < ks) mx = fmaxf(mx, mc[k]);
+#pragma unroll 8
+    for (int k = MERGE_CHUNK; k < ks; ++k)   // the other m's: one round trip for up to 10
+      mx = fmaxf(mx, __ldcg(a.m_p + row0 + (size_t)k * split_stride));
+    float l_tot = 0.0f;
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int k0 = 0; k0 < ks; k0 += MERGE_CHUNK) {
+      if (k0 > 0) load(k0);
+#pragma unroll
+      for (int k = 0; k < MERGE_CHUNK; ++k) {
+        if (k0 + k < ks) {
+          const float m = mc[k];
+          const float w = (isinf(m) && m < 0.0f) ? 0.0f : expf(m - mx);
+          l_tot = __fadd_rn(l_tot, __fmul_rn(lc[k], w));
+          acc.x = __fadd_rn(acc.x, __fmul_rn(ac[k].x, w));
+          acc.y = __fadd_rn(acc.y, __fmul_rn(ac[k].y, w));
+        }
+      }
+    }
+    const float den = fmaxf(l_tot, 1e-30f);
+    reinterpret_cast<float2*>(a.out + (((size_t)bi * a.s + si) * a.h + hi) * a.dh)[it.c] =
+        make_float2(__fdiv_rn(acc.x, den), __fdiv_rn(acc.y, den));
+  }
+}
+
+// Whether this block is the last of its tile's splits to arrive: each
+// thread's partial writes are ordered before the counter's atomic by the
+// fence; the last arrival resets the counter for the next launch. `flag` is
+// a word of the block's shared memory.
+__device__ __forceinline__ bool last_arrival(int* __restrict__ cnt, int tile, int splits,
+                                             int& flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    flag = atomicAdd(cnt + tile, 1) == splits - 1;
+    if (flag) cnt[tile] = 0;
+  }
+  __syncthreads();
+  const bool last = flag;
+  if (last) __threadfence();
+  return last;
+}
 
 template <typename TQ, typename TP, int DMAX>
 __global__ void __launch_bounds__(MAX_THREADS) paged_attention_kernel(PagedArgs a) {
@@ -626,41 +723,13 @@ __global__ void __launch_bounds__(MAX_THREADS) paged_attention_kernel(PagedArgs 
       }
     }
   }
-}
 
-// One warp per output row (b, h, s): merge `ks` partials by log-sum-exp.
-// A split that saw no live page carries m = -inf and weighs exactly zero.
-__global__ void combine_partials_kernel(const float* __restrict__ m_p,
-                                        const float* __restrict__ l_p,
-                                        const float* __restrict__ acc_p,
-                                        float* __restrict__ out, int b, int ks, int h,
-                                        int s, int dh) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= b * h * s) return;
-  const int si = warp % s;
-  const int hi = (warp / s) % h;
-  const int bi = warp / (s * h);
-  float mx = -INFINITY;
-  for (int k = 0; k < ks; ++k)
-    mx = fmaxf(mx, m_p[(((size_t)bi * ks + k) * h + hi) * s + si]);
-  float l_tot = 0.0f;
-  for (int k = 0; k < ks; ++k) {
-    const size_t row = (((size_t)bi * ks + k) * h + hi) * s + si;
-    const float m = m_p[row];
-    const float w = (isinf(m) && m < 0.0f) ? 0.0f : expf(m - mx);
-    l_tot = __fadd_rn(l_tot, __fmul_rn(l_p[row], w));
-  }
-  const float denom = fmaxf(l_tot, 1e-30f);
-  for (int d = lane; d < dh; d += 32) {
-    float acc = 0.0f;
-    for (int k = 0; k < ks; ++k) {
-      const size_t row = (((size_t)bi * ks + k) * h + hi) * s + si;
-      const float m = m_p[row];
-      const float w = (isinf(m) && m < 0.0f) ? 0.0f : expf(m - mx);
-      acc = __fadd_rn(acc, __fmul_rn(acc_p[row * dh + d], w));
-    }
-    out[(((size_t)bi * s + si) * h + hi) * dh + d] = __fdiv_rn(acc, denom);
+  // every block of a split launch arrives, a split with no live column too
+  if (a.splits > 1) {
+    const int n_qblocks = gridDim.x / a.splits;
+    int& flag = *reinterpret_cast<int*>(smem + L.off_used + 4);
+    if (last_arrival(a.counters, (bi * a.kh + kh) * n_qblocks + qb, a.splits, flag))
+      merge_tile(a, bi, kh, qb);
   }
 }
 
@@ -691,12 +760,15 @@ int launch_dh(const PagedArgs& a, size_t smem, cudaStream_t st) {
 // The launch plan (`q_rows`, `row_warps`, `key_warps`, `threads`,
 // `pages_per_tile`, `smem_bytes`)
 // comes from `attention_plan`; it is refused unless it covers every row and
-// its byte count is this file's layout.
+// its byte count is this file's layout. With `splits` > 1 the partials
+// `m_p`, `l_p`, `acc_p` and `n_counters` int32 tile counters, zero on entry
+// and left zero, are required (plan::attention_merge_ok).
 extern "C" int paged_attention_launch(
     const void* q, int q_dtype, const void* k, const void* v, int page_dtype,
     const void* k_scale, const void* k_zero, const void* v_scale, const void* v_zero,
     const void* freqs, const void* bt, const void* qpos, const void* seqlens, void* out,
-    void* m_p, void* l_p, void* acc_p, int b, int s, int h, int kh, int dh, int t,
+    void* m_p, void* l_p, void* acc_p, void* counters, int n_counters, int b, int s, int h,
+    int kh, int dh, int t,
     int n_cols, int q_block, int splits, int split_cols, int group, int bits, int q_rows,
     int row_warps, int key_warps, int threads, int pages_per_tile, int smem_bytes,
     void* stream) {
@@ -705,7 +777,10 @@ extern "C" int paged_attention_launch(
       dh <= 0 || dh > 128 || t <= 0 || splits < 1 || q_rows < 1 || row_warps < 1 ||
       key_warps < 1 || threads % 32 != 0 || threads > MAX_THREADS ||
       threads < row_warps * key_warps * 32 || row_warps * 16 < (h / kh) * q_rows ||
-      pages_per_tile < 1 || page_dtype < 0 || page_dtype > 2)
+      pages_per_tile < 1 || page_dtype < 0 || page_dtype > 2 ||
+      !plan::attention_merge_ok(b, kh, s, q_rows, splits,
+                                m_p && l_p && acc_p && counters,
+                                counters ? n_counters : 0))
     return (int)cudaErrorInvalidValue;
   const int esize = page_dtype == 0 ? 4 : (page_dtype == 1 ? 2 : 1);
   const int grp = group > 0 ? group : dh;
@@ -729,6 +804,7 @@ extern "C" int paged_attention_launch(
   a.bt = (const int32_t*)bt; a.qpos = (const int32_t*)qpos;
   a.seqlens = (const int32_t*)seqlens;
   a.out = (float*)out; a.m_p = (float*)m_p; a.l_p = (float*)l_p; a.acc_p = (float*)acc_p;
+  a.counters = (int*)counters;
   a.b = b; a.s = s; a.h = h; a.kh = kh; a.dh = dh; a.t = t; a.n_cols = n_cols;
   a.splits = splits; a.split_cols = split_cols; a.group = grp;
   a.q_rows = q_rows; a.warps = row_warps; a.key_warps = key_warps; a.threads = threads;
@@ -748,17 +824,4 @@ extern "C" int paged_attention_launch(
     if (q_dtype == 1) return launch_dh<__nv_bfloat16, __nv_bfloat16>(a, smem, st);
   }
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int combine_partials_launch(const void* m_p, const void* l_p, const void* acc_p,
-                                       void* out, int b, int ks, int h, int s, int dh,
-                                       void* stream) {
-  const long long rows = (long long)b * h * s;
-  if (rows <= 0) return 0;
-  const int threads = 128;  // four warps, one output row each
-  const long long blocks = (rows * 32 + threads - 1) / threads;
-  combine_partials_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)m_p, (const float*)l_p, (const float*)acc_p, (float*)out, b, ks, h, s,
-      dh);
-  return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
-// Launch-plan checks of block_hadamard.cu, hadamard_quant.cu and int4_matmul.cu.
+// Launch-plan checks of block_hadamard.cu, hadamard_quant.cu, int4_matmul.cu
+// and of paged_attention.cu's split merge.
 //
 // The plans are computed in Python (`kernels/block_hadamard.py::hadamard_plan`,
 // `kernels/hadamard_quant.py::hadamard_quant_plan`,
-// `kernels/int4_matmul.py::int4_plan`); each C launch calls the check below
+// `kernels/int4_matmul.py::int4_plan`, `kernels/paged_attention.py::merge_tiles`);
+// each C launch calls the check below
 // first and refuses (cudaErrorInvalidValue) a plan that does not match the
 // geometry its kernels are written for. Plain C++ with no CUDA header, so the
 // CPU tests compile this file with the host compiler and hold every Python
@@ -108,6 +110,22 @@ inline bool int4_plan_ok(long long m, long long n, long long k, int rows, long l
   return (rows == 32 || rows == 64) && threads == 4 * rows && k_rows % MMA_K_ROWS == 0 &&
          gx == cdiv(n, MMA_COLS) && gz == cdiv(m, rows) && smem == mma_smem(rows) &&
          smem <= 232448;
+}
+
+// ---- paged_attention's split merge -------------------------------------------
+
+// A block holds `q_rows` query positions of one (batch row, KV head); with
+// `splits` > 1 the splits of such a tile arrive at one int32 counter and the
+// last to arrive merges the tile. The launch needs the (m, l, acc) partials
+// (`partials`) and at least one counter per tile (`counters` of them).
+inline long long attention_tiles(long long b, long long kh, long long s, long long q_rows) {
+  return b * kh * cdiv(s, q_rows);
+}
+
+inline bool attention_merge_ok(long long b, long long kh, long long s, long long q_rows,
+                               int splits, bool partials, long long counters) {
+  if (b <= 0 || kh <= 0 || s <= 0 || q_rows < 1 || splits < 1) return false;
+  return splits == 1 || (partials && counters >= attention_tiles(b, kh, s, q_rows));
 }
 
 }  // namespace plan

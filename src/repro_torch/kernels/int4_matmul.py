@@ -21,7 +21,8 @@ corrected by -8 · rowsum(q_a), exact in int32. K is split over the grid
 until about `PLAN_BLOCKS` blocks spread the weight stream over the SMs; the
 splits meet in an int32 workspace by `atomicAdd`, and the last split of
 each tile runs the epilogue and leaves the workspace and its counter zero,
-so one launch does the call and the call can be replayed from a CUDA graph.
+so one launch does the call and the call can be replayed from a CUDA graph
+(the workspace: `_scratch`).
 `int4_plan` is the launch plan; the C launch checks it
 (`csrc/plan_check.h`). Ragged edges are masked in the kernel; nothing is
 padded. The column sums come from pack time (`ops.pack_int4_weights`), not
@@ -37,7 +38,7 @@ import dataclasses
 
 import torch
 
-from . import _build
+from . import _build, _scratch
 
 __all__ = ["int4_matmul", "int4_matmul_plain", "int4_pack", "int4_unpack",
            "int4_colsum", "int4_plan", "Int4Plan", "LAUNCHES"]
@@ -146,35 +147,8 @@ def int4_plan(m: int, n: int, k: int) -> Int4Plan:
                     MMA_STAGES * (MMA_K_ROWS * MMA_COLS + rows * MMA_A_PITCH))
 
 
-# Per device: the int32 split workspace and its tile counters, zero between
-# calls (each launch leaves them zero). One pair per device is current:
-# calls on a device must not run concurrently on two streams. A pair, once
-# handed to a launch, lives as long as the process: a call that needs more
-# allocates a larger pair and retires the old one to `_RETIRED`, never to
-# the allocator, because a CUDA graph captured earlier still launches into
-# the old pointers; the old pair stays zero (every launch leaves it so), so
-# the graph's replays and the new eager calls each have a valid pair. The
-# pair cannot grow during a capture (the allocation would belong to it).
+# Per device: the int32 split workspace and its tile counters (`_scratch`)
 _WORKSPACE: dict = {}
-_RETIRED: list = []
-
-
-def _workspace(dev: torch.device, n_ws: int, n_cnt: int):
-    key = dev.index if dev.index is not None else torch.cuda.current_device()
-    have = _WORKSPACE.get(key)
-    if have is None or have[0].numel() < n_ws or have[1].numel() < n_cnt:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "int4_matmul: its split workspace must be allocated before "
-                "CUDA-graph capture; run the call once outside the capture")
-        if have is not None:
-            _RETIRED.append(have)
-        n_ws = max(n_ws, have[0].numel() if have else 0)
-        n_cnt = max(n_cnt, have[1].numel() if have else 0)
-        have = _WORKSPACE[key] = (
-            torch.zeros(n_ws, dtype=torch.int32, device=dev),
-            torch.zeros(n_cnt, dtype=torch.int32, device=dev))
-    return have
 
 
 def int4_matmul(act_codes: torch.Tensor, act_scale: torch.Tensor,
@@ -217,7 +191,8 @@ def int4_matmul(act_codes: torch.Tensor, act_scale: torch.Tensor,
     plan = int4_plan(m, n, k)
     ws = cnt = None
     if plan.splits > 1:
-        ws, cnt = _workspace(dev, m * n, plan.grid[0] * plan.grid[2])
+        ws, cnt = _scratch.zeroed(_WORKSPACE, dev, (m * n, plan.grid[0] * plan.grid[2]),
+                                  "int4_matmul")
     lib = _build.load()
     code = lib.int4_matmul_launch(
         qa.data_ptr(), w.data_ptr(),

@@ -1,4 +1,4 @@
-"""Block-table-native paged causal attention and its split combine.
+"""Block-table-native paged causal attention, split merge included.
 
 Replaces the TPU kernels `repro/kernels/paged_attention.py::paged_attention`
 (body `_kernel`, helpers `dequant_page`, `rope_page`, `page_update`,
@@ -28,14 +28,25 @@ sharing rows merge their states once at the end. `attention_plan` decides
 rows per block, warps, pages per tile and shared-memory bytes; the C launch
 checks the plan. Decode steps cut the
 walk into fixed-width splits (4 table columns, at most 8 splits) for
-parallelism over the context - at T = 16 one split is one tile - and their
-`(m, l, acc)` partials are merged by the small combine kernel, which is
-bound by its launch.
+parallelism over the context - at T = 16 one split is one tile. The splits'
+`(m, l, acc)` partials are merged in the same launch: each split block of a
+(batch row, KV head, query block) tile arrives at an int32 counter of the
+tile, and the last to arrive merges the tile's rows by log-sum-exp, reading
+the partials in split order so the output does not depend on which block
+came last. So a call is one launch at any split count. The counters are
+zero between calls (every launch leaves them so) and live in a per-device
+array that is grown outside any CUDA-graph capture and never freed
+(`_scratch`, the rule `int4_matmul`'s workspace follows): run a split call
+once before capturing it. `merge_tiles` is the counter count a launch
+needs; the C launch checks it (`csrc/plan_check.h`).
 
-`paged_attention` and `combine_partials` are the wrappers: they launch the
-kernels on CUDA tensors and raise on anything else. The plain PyTorch
-versions are below; `kernels.ops` alone sends a CPU tensor to them. The
-plain walk visits the same columns in the same split order.
+`paged_attention` is the wrapper: it launches the kernel on CUDA tensors and
+raises on anything else. `LAUNCHES["combine_partials"]` counts its launches
+that merged splits (the reference's second kernel, `_combine_kernel`, is
+folded into them); `LAUNCHES["paged_attention"]` counts every launch. The
+plain PyTorch versions are below, `combine_partials_plain` among them;
+`kernels.ops` alone sends a CPU tensor to them. The plain walk visits the
+same columns in the same split order.
 """
 from __future__ import annotations
 
@@ -46,10 +57,10 @@ import math
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _scratch
 
-__all__ = ["paged_attention", "paged_attention_plain", "combine_partials",
-           "combine_partials_plain", "resolve_tiling", "used_page_counts",
+__all__ = ["paged_attention", "paged_attention_plain", "combine_partials_plain",
+           "merge_tiles", "resolve_tiling", "used_page_counts",
            "rope_frequencies", "dequant_page", "rope_page", "page_update",
            "finalize", "attention_plan", "AttentionPlan", "SPLIT_PAGE_COLS",
            "MAX_KV_SPLITS", "MASK_VALUE", "LAUNCHES"]
@@ -185,6 +196,12 @@ def resolve_tiling(s: int, kh: int, n_cols: int, q_block: int | None = None,
         raise ValueError(f"head_block {head_block} does not divide "
                          f"n_kv_heads {kh}")
     return q_block, kv_splits, head_block, split_cols
+
+
+def merge_tiles(b: int, kh: int, s: int, q_rows: int) -> int:
+    """Tiles of a split launch - (batch row, KV head, query block of
+    `q_rows` positions) - each with one int32 merge counter."""
+    return b * kh * -(-s // q_rows)
 
 
 def used_page_counts(q_positions: torch.Tensor,
@@ -358,7 +375,7 @@ def _partials_plain(q, kv, block_tables, q_positions, seq_lengths, *,
 def paged_attention_plain(q, kv, block_tables, q_positions, seq_lengths=None,
                           *, rope_theta=None, kv_bits=None, kv_group=None,
                           q_block=None, kv_splits=None, head_block=None):
-    """Plain PyTorch version of the kernel pair: a Python loop over table
+    """Plain PyTorch version of the kernel: a Python loop over table
     columns, split by split, then the combine. Same arguments and result as
     `paged_attention`."""
     b, s, h, dh = q.shape
@@ -382,28 +399,11 @@ def paged_attention_plain(q, kv, block_tables, q_positions, seq_lengths=None,
 
 
 # ---------------------------------------------------------------------------
-# Wrappers
+# Wrapper
 # ---------------------------------------------------------------------------
 
-def combine_partials(m_p: torch.Tensor, l_p: torch.Tensor,
-                     acc_p: torch.Tensor) -> torch.Tensor:
-    """m_p/l_p [B, KS, H, S], acc_p [B, KS, H, S, Dh] f32 -> [B, S, H, Dh]."""
-    if m_p.device.type != "cuda":
-        raise RuntimeError(f"combine_partials launches a CUDA kernel; got a "
-                           f"tensor on {m_p.device}")
-    b, ks, h, s, dh = acc_p.shape
-    for t_ in (m_p, l_p, acc_p):
-        if t_.dtype != torch.float32 or not t_.is_contiguous():
-            raise TypeError("combine_partials takes contiguous float32 partials")
-    out = torch.empty((b, s, h, dh), dtype=torch.float32, device=m_p.device)
-    lib = _build.load()
-    code = lib.combine_partials_launch(
-        m_p.data_ptr(), l_p.data_ptr(), acc_p.data_ptr(), out.data_ptr(),
-        b, ks, h, s, dh, _build.stream_ptr(m_p.device))
-    _build.check(code, "combine_partials")
-    LAUNCHES["combine_partials"] += 1
-    return out
-
+# Per device: the int32 merge counters of split launches (`_scratch`)
+_COUNTERS: dict = {}
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -468,12 +468,15 @@ def paged_attention(q: torch.Tensor, kv: dict, block_tables: torch.Tensor,
     freqs = (rope_frequencies(dh, rope_theta, dev)
              if quant and rope_theta is not None else None)
     out = torch.empty((b, s, h, dh), dtype=torch.float32, device=dev)
-    m_p = l_p = acc_p = None
+    m_p = l_p = acc_p = cnt = None
     if kv_splits > 1:
         m_p = torch.empty((b, kv_splits, h, s), dtype=torch.float32, device=dev)
         l_p = torch.empty_like(m_p)
         acc_p = torch.empty((b, kv_splits, h, s, dh), dtype=torch.float32,
                             device=dev)
+        (cnt,) = _scratch.zeroed(_COUNTERS, dev,
+                                 (merge_tiles(b, kh, s, plan.q_rows),),
+                                 "paged_attention")
 
     def ptr(a):
         return a.data_ptr() if a is not None else None
@@ -483,14 +486,14 @@ def paged_attention(q: torch.Tensor, kv: dict, block_tables: torch.Tensor,
         qc.data_ptr(), _Q_DTYPES[q.dtype], kp.data_ptr(), vp.data_ptr(),
         _PAGE_DTYPES[kp.dtype], ptr(aux[0]), ptr(aux[1]), ptr(aux[2]),
         ptr(aux[3]), ptr(freqs), bt.data_ptr(), qpos.data_ptr(), ptr(lens),
-        out.data_ptr(), ptr(m_p), ptr(l_p), ptr(acc_p),
-        b, s, h, kh, dh, t, n_cols, q_block, kv_splits, split_cols,
+        out.data_ptr(), ptr(m_p), ptr(l_p), ptr(acc_p), ptr(cnt),
+        cnt.numel() if cnt is not None else 0, b, s, h, kh, dh, t, n_cols, q_block, kv_splits, split_cols,
         kv_group if quant else 0, kv_bits if quant else 0,
         plan.q_rows, plan.warps, plan.key_warps, plan.threads,
         plan.pages_per_tile, plan.smem_bytes,
         _build.stream_ptr(dev))
     _build.check(code, "paged_attention")
     LAUNCHES["paged_attention"] += 1
-    if kv_splits == 1:
-        return out
-    return combine_partials(m_p, l_p, acc_p)
+    if kv_splits > 1:
+        LAUNCHES["combine_partials"] += 1
+    return out

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _scratch
 from repro_torch.kernels import block_hadamard as BH
 from repro_torch.kernels import hadamard_quant as HQ
 from repro_torch.kernels import int4_matmul as I4
@@ -315,7 +316,7 @@ def test_launches_refuse_a_plan_that_disagrees(dev):
     args = dict(rows=p.rows, k_rows=p.k_rows, splits=p.splits, threads=p.threads,
                 gx=p.grid[0], gy=p.grid[1], gz=p.grid[2],
                 smem=p.smem_bytes)
-    ws, cnt = I4._workspace(dev, 4 * 512, 64)
+    ws, cnt = _scratch.zeroed(I4._WORKSPACE, dev, (4 * 512, 64), "int4_matmul")
 
     def call(**change):
         a = {**args, **change}
@@ -345,11 +346,11 @@ def test_launches_refuse_a_plan_that_disagrees(dev):
     torch.cuda.synchronize()
 
 
-def _attention_case(dev, fmt, t, s, g, dh, lens, n_cols, kv_splits=None,
-                    q_dtype=torch.float32, group=None, kh=2):
-    """The kernel against its plain version on one seeded case; returns the
-    kernel's output."""
-    rng = np.random.default_rng(2)
+def _attention_inputs(dev, fmt, t, s, g, dh, lens, n_cols, q_dtype=torch.float32,
+                      group=None, kh=2, seed=2):
+    """One seeded case: (args, keyword arguments but kv_splits) of a
+    `paged_attention` call."""
+    rng = np.random.default_rng(seed)
     b = len(lens)
     n_pages = 1 + b * n_cols
     shape = (n_pages, t, kh, dh)
@@ -380,11 +381,22 @@ def _attention_case(dev, fmt, t, s, g, dh, lens, n_cols, kv_splits=None,
                         dtype=torch.int32, device=dev)
     args = (q, kv, torch.from_numpy(bt).to(dev), qpos,
             torch.tensor(lens, dtype=torch.int32, device=dev))
-    kw = dict(rope_theta=10000.0 if bits else None, kv_bits=bits,
-              kv_group=group if bits else None, kv_splits=kv_splits)
-    before = PA.LAUNCHES["paged_attention"]
+    return args, dict(rope_theta=10000.0 if bits else None, kv_bits=bits,
+                      kv_group=group if bits else None)
+
+
+def _attention_case(dev, fmt, t, s, g, dh, lens, n_cols, kv_splits=None,
+                    q_dtype=torch.float32, group=None, kh=2):
+    """The kernel against its plain version on one seeded case; returns the
+    kernel's output. One launch, which merges the splits when there are
+    several."""
+    args, kw = _attention_inputs(dev, fmt, t, s, g, dh, lens, n_cols, q_dtype, group, kh)
+    kw["kv_splits"] = kv_splits
+    splits = PA.resolve_tiling(s, kh, n_cols, kv_splits=kv_splits)[1]
+    before = dict(PA.LAUNCHES)
     out = kops.paged_attention(*args, **kw)
-    assert PA.LAUNCHES["paged_attention"] == before + 1
+    assert PA.LAUNCHES["paged_attention"] == before["paged_attention"] + 1
+    assert PA.LAUNCHES["combine_partials"] == before["combine_partials"] + (splits > 1)
     with kops.use_kernels(False):
         want = kops.paged_attention(*args, **kw)
     # f32 throughout (3xTF32 products keep f32 accuracy), other summation
@@ -438,6 +450,108 @@ def test_paged_attention_kernel_tiles(dev, monkeypatch, fmt, t, s, g, dh, lens, 
                                  else torch.float32, group=group)
         assert plan.warps > 1
     _attention_case(dev, fmt, t, s, g, dh, lens, n_cols, kv_splits, q_dtype, group)
+
+
+# The split merge in the kernel's last-arriving block: no split, 2 and 3
+# splits, 8 of one column each, 13 over a 16-column table (splits 8-12 lie
+# past the table); dead splits and a row of length 0 in every case.
+MERGE_SPLITS = [1, 2, 3, 8, 13]
+
+
+@pytest.mark.parametrize("ks", MERGE_SPLITS)
+@pytest.mark.parametrize("fmt", ["int4", "bf16"])
+def test_paged_attention_fused_merge(dev, fmt, ks):
+    n_cols = 16 if ks == 13 else 8
+    _attention_case(dev, fmt, 16, 1, 4, 64, [n_cols * 16 - 6, 0, 37, 113], n_cols, ks,
+                    torch.bfloat16, kh=8)
+
+
+@pytest.mark.parametrize("ks", [2, 8, 13])
+def test_paged_attention_merge_is_bit_stable(dev, ks):
+    """The splits finish in another order on every launch; the merge reads
+    them in split order, so 20 launches give one bit pattern."""
+    n_cols = 16 if ks == 13 else 8
+    args, kw = _attention_inputs(dev, "int4", 16, 1, 4, 64, [n_cols * 16 - 6, 0, 37, 113],
+                                 n_cols, torch.bfloat16, kh=8)
+    first = PA.paged_attention(*args, kv_splits=ks, **kw)
+    for _ in range(19):
+        assert torch.equal(PA.paged_attention(*args, kv_splits=ks, **kw), first)
+
+
+def _counters_zero():
+    return all(not bool(c.any()) for cs in PA._COUNTERS.values() for c in cs)
+
+
+def test_paged_attention_graph_replay(dev):
+    """A split decode call captured in a CUDA graph, then replayed over
+    several steps whose lengths, positions and tables change through the
+    captured buffers: each replay bit-equal to the eager call on the same
+    inputs, and every merge counter zero after every replay."""
+    lens0 = [200, 0, 37, 113]
+    args, kw = _attention_inputs(dev, "int4", 16, 1, 4, 64, lens0, 16, torch.bfloat16,
+                                 kh=8, seed=11)
+    q, kv, bt, qpos, lens = args
+    assert PA.resolve_tiling(1, 8, 16)[1] > 1
+    PA.paged_attention(*args, **kw)              # counters allocated outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = PA.paged_attention(*args, **kw)
+    rng = np.random.default_rng(12)
+    n_pages = kv["k"].shape[0]
+    for step in range(4):
+        new_lens = [int(x) for x in rng.integers(0, 16 * 16, 4)]
+        new_lens[step % 4] = 0
+        table = np.zeros((4, 16), np.int32)
+        for i, ln in enumerate(new_lens):
+            table[i, :-(-ln // 16)] = rng.choice(np.arange(1, n_pages), -(-ln // 16), False)
+        bt.copy_(torch.from_numpy(table))
+        lens.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        qpos.copy_(torch.tensor([[max(ln - 1, 0)] for ln in new_lens], dtype=torch.int32))
+        q.copy_(torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _counters_zero()
+        assert torch.equal(out, PA.paged_attention(*args, **kw))
+        assert _counters_zero()
+
+
+def test_paged_attention_graph_keeps_its_counters(dev, monkeypatch):
+    """A graph captured over a split call on 4 rows; then an eager call on
+    32 rows grows the merge counters, and tensors of the old array's size
+    are allocated and filled - until one lands on the old array's memory, if
+    the allocator has it back. The replays must still give the eager result
+    bit for bit and leave those tensors alone: the old array stays the
+    graph's."""
+    monkeypatch.setattr(PA, "_COUNTERS", {})
+    lens4 = [120, 0, 37, 113]
+    args, kw = _attention_inputs(dev, "int4", 16, 1, 4, 64, lens4, 8, torch.bfloat16, kh=8)
+    want = PA.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = PA.paged_attention(*args, **kw)
+    key = torch.cuda.current_device()
+    (old,) = PA._COUNTERS[key]
+    args32, _ = _attention_inputs(dev, "int4", 16, 1, 4, 64, lens4 * 8, 8, torch.bfloat16,
+                                  kh=8, seed=3)
+    want32 = PA.paged_attention(*args32, **kw)
+    assert PA._COUNTERS[key][0].numel() > old.numel()           # it grew
+    size, old_ptr = old.numel(), old.data_ptr()
+    del old
+    pattern = 0x5A5A5A5A
+    fills = []
+    for _ in range(256):
+        fills.append(torch.full((size,), pattern, dtype=torch.int32, device=dev))
+        if fills[-1].data_ptr() == old_ptr:
+            break
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert all(bool((f == pattern).all()) for f in fills)
+    assert torch.equal(PA.paged_attention(*args32, **kw), want32)
 
 
 @pytest.mark.parametrize("shape,b", [((4, 1, 8192), 16), ((37, 2048), 1),

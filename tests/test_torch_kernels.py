@@ -380,6 +380,91 @@ def test_combine_partials_with_dead_splits():
     np.testing.assert_array_equal(got, N(tref.combine_partials_ref(T(m), T(l), T(acc))))
 
 
+def _merge_partials(rng, b, ks, h, s, dh):
+    """Seeded split partials with dead splits (m = -inf, l = 0, acc = 0: the
+    upper half of the splits of batch row 0, every split past the first of
+    row 1) and output rows with no live split at all (row b - 1, head 0)."""
+    m = (rng.standard_normal((b, ks, h, s)) * 4).astype(np.float32)
+    l = rng.uniform(0.5, 16, (b, ks, h, s)).astype(np.float32)
+    acc = rng.standard_normal((b, ks, h, s, dh)).astype(np.float32)
+    dead = np.zeros((b, ks, h, s), bool)
+    dead[0, ks // 2:] = True
+    dead[1, 1:] = True
+    dead[b - 1, :, 0] = True
+    m[dead], l[dead], acc[dead] = -np.inf, 0.0, 0.0
+    return m, l, acc
+
+
+def _emulate_merged_launch(m, l, acc, kh, order):
+    """numpy f32 emulation of one split launch of the attention kernel's
+    epilogue: the blocks (batch row, KV head, split) - one query block -
+    finish in `order`; each writes its partial rows of its G heads into the
+    launch's partial buffers (garbage before) and arrives at its tile's
+    counter; the last to arrive resets the counter and merges the tile from
+    splits 0..KS-1 in that order, op for op as `merge_tile` in
+    csrc/paged_attention.cu (every f32 product and sum rounded once). ->
+    (out [B, S, H, Dh], the counters after the launch)."""
+    b, ks, h, s, dh = acc.shape
+    g = h // kh
+    bufs = [np.full_like(x, np.nan) for x in (m, l, acc)]
+    out = np.full((b, s, h, dh), np.nan, np.float32)
+    cnt = np.zeros(b * kh, np.int32)
+    f32 = np.float32
+    for bi, khi, k in order:
+        heads = slice(khi * g, (khi + 1) * g)
+        for buf, x in zip(bufs, (m, l, acc)):
+            buf[bi, k, heads] = x[bi, k, heads]
+        tile = bi * kh + khi
+        cnt[tile] += 1
+        if cnt[tile] != ks:
+            continue
+        cnt[tile] = 0
+        mp, lp, ap = (buf[bi, :, heads] for buf in bufs)
+        mx = np.full(mp.shape[1:], -np.inf, f32)
+        for j in range(ks):
+            mx = np.maximum(mx, mp[j])
+        l_tot = np.zeros_like(mx)
+        a_tot = np.zeros(ap.shape[1:], f32)
+        for j in range(ks):
+            with np.errstate(invalid="ignore"):
+                w = np.where(np.isneginf(mp[j]), f32(0), np.exp(mp[j] - mx)).astype(f32)
+            l_tot = (l_tot + (lp[j] * w).astype(f32)).astype(f32)
+            a_tot = (a_tot + (ap[j] * w[..., None]).astype(f32)).astype(f32)
+        o = (a_tot / np.maximum(l_tot, f32(1e-30))[..., None]).astype(f32)
+        out[bi, :, heads] = o.transpose(1, 0, 2)
+    return out, cnt
+
+
+@pytest.mark.parametrize("ks", [2, 3, 8, 13])
+def test_attention_merge_emulation_matches_jax_combine(ks):
+    """The merge by the last-arriving split gives one bit pattern whatever
+    order the split blocks finish in, that pattern is the JAX
+    `combine_partials` within 1e-6 relative, a row with no live split comes
+    out exactly 0, and every counter is zero after the launch."""
+    rng = np.random.default_rng(20 + ks)
+    b, kh, g, s, dh = 3, 2, 4, 1, 16
+    m, l, acc = _merge_partials(rng, b, ks, kh * g, s, dh)
+    blocks = [(bi, khi, k) for bi in range(b) for khi in range(kh) for k in range(ks)]
+    first = None
+    for trial in range(6):
+        order = blocks if trial == 0 else [blocks[i] for i in rng.permutation(len(blocks))]
+        out, cnt = _emulate_merged_launch(m, l, acc, kh, order)
+        assert not cnt.any()
+        if first is None:
+            first = out
+        np.testing.assert_array_equal(out, first)
+    # 1e-6 relative to the largest output of the row: the weights' exp
+    # differs between numpy, XLA and the card by an ulp, and the merged sums
+    # carry that error relative to their terms, not to their (cancelling) sum
+    for other in (np.stack([np.asarray(jpa.combine_partials(
+            jnp.asarray(m[i]), jnp.asarray(l[i]), jnp.asarray(acc[i])))
+            for i in range(b)]),
+            N(tpa.combine_partials_plain(T(m), T(l), T(acc)))):
+        scale = np.abs(other).max(axis=-1, keepdims=True)
+        assert np.all(np.abs(first - other) <= 1e-6 * scale)
+    assert np.all(first[b - 1, :, 0] == 0.0) and np.isfinite(first).all()
+
+
 def test_tiling_and_used_pages_equal_on_a_sweep():
     for s in (1, 2, 3, 4, 8, 12, 16, 32, 33):
         for kh in (1, 2, 8):
@@ -487,9 +572,11 @@ def test_module_wrappers_launch_or_raise():
         tpa.paged_attention(torch.zeros(1, 1, 2, 8), kv,
                             torch.zeros(1, 1, dtype=torch.int32),
                             torch.zeros(1, 1, dtype=torch.int32))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tpa.combine_partials(torch.zeros(1, 2, 2, 1), torch.zeros(1, 2, 2, 1),
-                             torch.zeros(1, 2, 2, 1, 8))
+    kv9 = {"k": torch.zeros(9, 4, 1, 8), "v": torch.zeros(9, 4, 1, 8)}
+    with pytest.raises(RuntimeError, match="CUDA"):      # a split call merges in-kernel
+        tpa.paged_attention(torch.zeros(1, 1, 2, 8), kv9,
+                            torch.zeros(1, 8, dtype=torch.int32),
+                            torch.zeros(1, 1, dtype=torch.int32), kv_splits=2)
     from repro_torch.kernels import block_hadamard as tbh
     with pytest.raises(RuntimeError, match="CUDA"):
         tbh.block_hadamard(x, 16)
@@ -614,7 +701,10 @@ def plan_check_lib(tmp_path_factory):
         'extern "C" int hq_ok(long long m, long long d, long long b, int dense, int kind,'
         ' int e, int threads, int cluster, long long grid, long long smem) {'
         ' return plan::hadamard_quant_plan_ok(m, d, b, dense, kind, e, threads, cluster,'
-        ' grid, smem); }\n')
+        ' grid, smem); }\n'
+        'extern "C" int att_ok(long long b, long long kh, long long s, long long q_rows,'
+        ' int splits, int partials, long long counters) {'
+        ' return plan::attention_merge_ok(b, kh, s, q_rows, splits, partials, counters); }\n')
     so = d / "libplan_check.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{_build.CSRC}",
                     str(d / "shim.cpp"), "-o", str(so)], check=True)
@@ -623,6 +713,7 @@ def plan_check_lib(tmp_path_factory):
     lib.bh_ok.argtypes = [L, L, L, I, I, I, I, L, L]
     lib.i4_ok.argtypes = [L, L, L, I, L, I, I, L, L, L, L, I]
     lib.hq_ok.argtypes = [L, L, L, I, I, I, I, I, L, L]
+    lib.att_ok.argtypes = [L, L, L, L, I, I, L]
     return lib
 
 
@@ -645,6 +736,28 @@ def test_int4_plans_pass_the_c_launch_check(plan_check_lib):
                 continue
             bad = {**fields, key: fields[key] + (1 if key != "ws" else -1)}
             assert plan_check_lib.i4_ok(m, n, k, *bad.values()) == 0, (m, n, k, key)
+
+
+def test_attention_merge_plans_pass_the_c_launch_check(plan_check_lib):
+    """The counters the wrapper sizes for a split launch (`merge_tiles`,
+    with the plan's query rows and the resolved split count) are what the C
+    launch accepts, and each field off by a step is refused: a tile more
+    (batch row, KV head, query block), a counter fewer, no partials."""
+    for g, dh in sorted(set(_attention_configs().values())):
+        for s in (1, 3, 8, 32, 33):
+            for n_cols, kv_splits in ((8, None), (32, None), (256, None), (16, 13),
+                                      (5, 2), (1, None)):
+                for b, kh in ((1, 1), (4, 8), (3, 2)):
+                    q_rows = tpa.attention_plan(g, s, dh, 16, torch.int8, group=dh).q_rows
+                    _, splits, _, _ = tpa.resolve_tiling(s, kh, n_cols, kv_splits=kv_splits)
+                    f = dict(b=b, kh=kh, s=s, q_rows=q_rows, splits=splits, partials=1,
+                             counters=tpa.merge_tiles(b, kh, s, q_rows))
+                    assert plan_check_lib.att_ok(*f.values()) == 1, f
+                    if splits == 1:
+                        continue
+                    for key, v in (("b", b + 1), ("kh", kh + 1), ("s", s + q_rows),
+                                   ("counters", f["counters"] - 1), ("partials", 0)):
+                        assert plan_check_lib.att_ok(*{**f, key: v}.values()) == 0, (f, key)
 
 
 def test_hadamard_plans_pass_the_c_launch_check(plan_check_lib):
