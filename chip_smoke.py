@@ -8,9 +8,10 @@ against its plain PyTorch version on the card at the serving path's
 full-width shapes, serves llama3-1b (16 layers, seeded random weights)
 through `repro_torch.launch.serve` with true-integer W4A4 arithmetic and an
 int4 KV page pool - once plain, once observed (`--probe-every 4 --trace
---metrics-json`, which runs `block_hadamard` in the rotation-quality probe)
-- and checks the kernels' logits against the plain versions' on the same
-state. Phases print one JSON line each:
+--metrics-json`, which runs `block_hadamard` in the rotation-quality probe),
+each decode step one replay of a captured CUDA graph - and checks the
+kernels' logits against the plain versions' on the same state and the
+graphed decode against the eager one. Phases print one JSON line each:
 
     device   card name and power limit (nvidia-smi)
     build    seconds nvcc took
@@ -21,8 +22,13 @@ state. Phases print one JSON line each:
              two short runs
     parity   one prefill chunk and one decode step, kernels vs plain, and
              the probed decode step against the unprobed one
-    profile  (only with --profile) where a decode step's time goes, without
-             and with the probe
+    graph    the engine's decode step replayed from captured CUDA graphs
+             (its dispatch on the card) against the same engine run eagerly:
+             tokens, logits and counts equal; graphs captured, their pool's
+             memory, capture time; host ms per pure decode step of both,
+             interleaved
+    profile  (only with --profile) where a pure decode step's time goes,
+             eager and graphed, without and with the probe
     ptxas    (only with --ptxas) registers, spills and shared memory of
              every kernel, from a compile of its own (also when the library
              was already built)
@@ -1002,40 +1008,179 @@ HAND_WRITTEN_KERNELS = {
 }
 
 
-def phase_profile(adapter):
-    """Where a pure decode step's time goes: 4 sequences of ~100 cached
-    tokens, host wall per step, then the same steps under torch.profiler for
-    the device-busy time and the kernels by share - first unprobed, then
-    with the rotation-quality probe on every decode step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def _decoding_engine(adapter, *, eager: bool):
+    """An engine whose 4 sequences of 64 prompt tokens are prefilled, so
+    each further step is a pure decode step. The first row decodes from ~73
+    cached tokens, the last from 65; tables stay at 8 columns up to 128
+    cached tokens, past the ~50 steps the callers time, so no capture of a
+    new variant falls inside a timed window."""
     from repro_torch.serve.engine import (EngineRequest, SamplingParams,
                                           ServeEngine)
-    from repro_torch.serve.telemetry import QualityProbes
     engine = ServeEngine(adapter, n_pages=4 * 16 + 1, page_size=16, max_seqs=4,
-                         prefill_chunk=32)
+                         prefill_chunk=32, eager=eager)
     rng = np.random.default_rng(3)
     for rid in range(4):
         engine.submit(EngineRequest(
-            rid=rid, prompt=rng.integers(0, adapter.cfg.vocab, 100).tolist(),
-            sampling=SamplingParams(max_new=80)))
+            rid=rid, prompt=rng.integers(0, adapter.cfg.vocab, 64).tolist(),
+            sampling=SamplingParams(max_new=150)))
     while engine.queue or engine.prefilling:
         engine.step()
+    return engine
+
+
+def _step_ms(engine, n: int) -> list[float]:
+    """Host milliseconds of each of n engine steps; every step ends in the
+    transfer of its tokens, which waits for the device."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        engine.step()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+class _TimedReplay:
+    """Stands in for a captured graph and records CUDA events around each
+    replay: the device time of the replay, whatever the profiler shows of
+    the kernels inside it."""
+
+    def __init__(self, graph):
+        self.graph, self.events = graph, []
+
+    def replay(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.graph.replay()
+        end.record()
+        self.events.append((start, end))
+
+
+def phase_graph(adapter):
+    """The engine's decode dispatch captured as CUDA graphs, against the
+    same engine dispatching eagerly (its test-only `eager=True`): the same
+    requests - three greedy, one sampled row with top-k and top-p - served
+    by both with every count set to 0 just before each run and read just
+    after. Tokens and every step's logits must be equal bit for bit, the
+    launch counts and dispatch tallies equal, plain dispatches none. Then
+    host ms per pure decode step of both engines, interleaved."""
+    from repro_torch.serve.engine import (EngineRequest, SamplingParams,
+                                          ServeEngine)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, adapter.cfg.vocab, n).tolist()
+               for n in (70, 150, 33, 110)]
+    samplings = [SamplingParams(max_new=24),
+                 SamplingParams(max_new=12, temperature=0.8, top_k=50,
+                                top_p=0.95),
+                 SamplingParams(max_new=24), SamplingParams(max_new=20)]
+
+    def serve(eager):
+        engine = ServeEngine(adapter, n_pages=4 * 12 + 1, page_size=16,
+                             max_seqs=4, prefill_chunk=32, seed=3,
+                             record_logits=True, eager=eager)
+        for rid, (p, sp) in enumerate(zip(prompts, samplings)):
+            engine.submit(EngineRequest(rid=rid, prompt=p, sampling=sp))
+        kops.reset_kernel_launch_counts()
+        kops.reset_dispatch_counts()
+        done = engine.run()
+        torch.cuda.synchronize()
+        launches, dispatch = kops.count_snapshot()
+        engine.check_books()
+        return engine, {r.rid: r for r in done}, launches, dispatch
+
+    _, want, want_launches, want_dispatch = serve(eager=True)
+    graphed, got, launches, dispatch = serve(eager=False)
+    problems = []
+    tokens_equal = all(got[r].generated == want[r].generated for r in want)
+    steps = [(g, w) for r in want
+             for g, w in zip(got[r].step_logits, want[r].step_logits)]
+    unequal = [float(np.abs(g - w).max()) for g, w in steps
+               if not np.array_equal(g, w)]
+    if sorted(got) != sorted(want) or not tokens_equal:
+        problems.append("tokens differ between the graphed and eager engines")
+    if any(len(got[r].step_logits) != len(want[r].step_logits) for r in want):
+        problems.append("a request recorded another number of logits rows")
+    if unequal:
+        problems.append(f"{len(unequal)} of {len(steps)} logits rows differ")
+    if launches != want_launches or dispatch != want_dispatch:
+        problems.append(f"counts differ: graphed {launches} {dispatch}, "
+                        f"eager {want_launches} {want_dispatch}")
+    plain = {e: n for (e, path), n in dispatch.items() if path == "ref"}
+    if plain:
+        problems.append(f"plain versions ran: {plain}")
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] <= 0:
+            problems.append(f"kernel {name} was never launched")
+    if any(r.outcome != "length" for r in got.values()):
+        problems.append("a request did not end 'length'")
+    stats = graphed.graph_stats()
+    decodes = graphed.metrics.histogram("engine.decode.batch_occupancy").count
+    variants = sorted(key[2] for key in graphed._graphs)
+    del graphed
+    # host ms per pure decode step, the two engines interleaved (ABBA)
+    engines = {"eager": _decoding_engine(adapter, eager=True),
+               "graphed": _decoding_engine(adapter, eager=False)}
+    for engine in engines.values():
+        _step_ms(engine, 3)        # the graphed engine captures here
+    ms = {"eager": [], "graphed": []}
+    for order in (("eager", "graphed"), ("graphed", "eager")) * 2:
+        for name in order:
+            ms[name].append(_step_ms(engines[name], 6))
+    host = {name: {"median": float(np.median(sum(runs, []))),
+                   "mean": float(np.mean(sum(runs, []))),
+                   "block_means": [float(np.mean(r)) for r in runs]}
+            for name, runs in ms.items()}
+    ok = not problems
+    emit("graph", ok=ok, problems=problems, requests=len(got),
+         decode_dispatches=decodes, graphs_captured=stats["graphs"],
+         variants=[list(v) for v in variants],
+         variant_fields=["n_cols", "probe", "samples", "filtered"],
+         pool_mib=stats["pool_bytes"] / 2 ** 20, capture_s=stats["capture_s"],
+         tokens_equal=tokens_equal, logits_rows=len(steps),
+         logits_rows_unequal=len(unequal),
+         logits_max_abs_diff=max(unequal, default=0.0),
+         kernel_launches=launches, eager_kernel_launches=want_launches,
+         plain_dispatches=plain,
+         host_ms_per_decode_step=host,
+         graphed_over_eager=host["graphed"]["median"] / host["eager"]["median"],
+         tolerance="tokens equal, logits bit-equal, counts equal")
+    if not ok:
+        fail(f"graph phase: {problems}")
+
+
+def phase_profile(adapter):
+    """Where a pure decode step's time goes, eager and graphed: 4 sequences
+    of ~65-125 cached tokens, host ms per step (median of steps timed one
+    by one), then the same steps under torch.profiler for the device-busy
+    time and the kernels by share - unprobed, then with the
+    rotation-quality probe on every decode step; the two engines in turns
+    (eager, graphed, graphed, eager). For the graphed engine CUDA events
+    around each replay of the host-timed steps give the replay's device
+    span (outside the profiler, whose tracing slows a replay) beside the
+    profiler's kernel sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.telemetry import QualityProbes
+    engines = {"eager": _decoding_engine(adapter, eager=True),
+               "graphed": _decoding_engine(adapter, eager=False)}
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    def measure(n=10, warmup=3):
-        for _ in range(warmup):
-            engine.step()
+    def measure(engine, n=10, warmup=3):
+        _step_ms(engine, warmup)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            engine.step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+        variants = len(engine._graphs)
+        timed = {}
+        for key, call in engine._graphs.items():
+            if call.graph is not None:
+                call.graph = timed[key] = _TimedReplay(call.graph)
+        host = _step_ms(engine, n)
+        for key, t in timed.items():
+            engine._graphs[key].graph = t.graph
+        replays = [s.elapsed_time(e) for t in timed.values() for s, e in t.events]
         kops.reset_kernel_launch_counts()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1054,34 +1199,48 @@ def phase_profile(adapter):
         hand = {name: sum(us for key, us, _ in rows
                           if any(kn in key for kn in names)) / 1e3 / n
                 for name, names in HAND_WRITTEN_KERNELS.items()}
+        wall_ms = float(np.median(host))
         return dict(
             decode_rows=len(engine.decoding), steps=n,
             ms_per_decode_step=wall_ms,
+            ms_per_decode_step_mean=float(np.mean(host)),
             ms_per_decode_step_profiled=prof_wall_ms,
             device_busy_ms_per_step=busy_ms,
             device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+            variants_new_in_window=len(engine._graphs) - variants,
+            replays_timed=len(replays),
+            replay_device_ms=float(np.mean(replays)) if replays else None,
             device_kernels_per_step=sum(r[2] for r in rows) / n,
             hand_written_launches_per_step={k: v / n
                                             for k, v in launches.items()},
             hand_written_device_ms_per_step=hand,
             merged_inside={"combine_partials": "paged_attention_kernel"},
-            int4_matmul_share_of_busy=hand["int4_matmul"] / busy_ms,
+            int4_matmul_share_of_busy=(hand["int4_matmul"] / busy_ms
+                                       if busy_ms else None),
             top_device_kernels=[{"name": k[:90], "ms_per_step": us / 1e3 / n,
                                  "calls_per_step": c / n}
                                 for k, us, c in rows[:14]])
 
-    plain = measure()
-    # the same engine from here on runs the probe variant of every decode
-    # step (the first request is ~12 decode steps in when the last one has
-    # prefilled; with the 44 steps measured here all 4 rows stay live)
-    engine.quality_probes = QualityProbes(every_k=1)
-    engine.quality_probes.bind(engine.metrics)
-    probed = measure(warmup=1)
-    emit("profile", **plain, probed_every_step=probed,
-         probe_cost_ms_per_step=probed["ms_per_decode_step"]
-         - plain["ms_per_decode_step"],
-         probe_cost_device_ms_per_step=probed["device_busy_ms_per_step"]
-         - plain["device_busy_ms_per_step"])
+    out = {"eager": {}, "graphed": {}}
+    for name in ("eager", "graphed"):
+        out[name]["plain"] = measure(engines[name])
+    # from here on every decode step runs the probe variant (its capture
+    # is the graphed engine's warm-up step)
+    for name in ("graphed", "eager"):
+        engine = engines[name]
+        engine.quality_probes = QualityProbes(every_k=1)
+        engine.quality_probes.bind(engine.metrics)
+        out[name]["probed_every_step"] = measure(engine, warmup=1)
+    emit("profile", **out, order="eager, graphed, then probed: graphed, eager",
+         graphed_over_eager_host_ms={
+             k: out["graphed"][k]["ms_per_decode_step"]
+             / out["eager"][k]["ms_per_decode_step"] for k in out["eager"]},
+         probe_cost_ms_per_step={
+             name: o["probed_every_step"]["ms_per_decode_step"]
+             - o["plain"]["ms_per_decode_step"] for name, o in out.items()},
+         probe_cost_device_ms_per_step={
+             name: o["probed_every_step"]["device_busy_ms_per_step"]
+             - o["plain"]["device_busy_ms_per_step"] for name, o in out.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -1156,6 +1315,7 @@ def main(argv=None):
         phase_sweep()
     launches, adapter = phase_serve()
     phase_parity(adapter)
+    phase_graph(adapter)
     if args.profile:
         phase_profile(adapter)
     print(smi, flush=True)

@@ -37,6 +37,9 @@ __all__ = [
     "reset_dispatch_counts",
     "kernel_launch_counts",
     "reset_kernel_launch_counts",
+    "count_snapshot",
+    "counts_since",
+    "add_counts",
 ]
 
 _STATE = {"enabled": True}
@@ -71,6 +74,31 @@ def reset_kernel_launch_counts():
     for counts in (_bh.LAUNCHES, _hq.LAUNCHES, _i4.LAUNCHES, _pa.LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def count_snapshot() -> tuple[dict, dict]:
+    """Both tallies at once: (kernel launch counts, dispatch tallies)."""
+    return kernel_launch_counts(), dispatch_counts()
+
+
+def counts_since(before: tuple[dict, dict]) -> tuple[dict, dict]:
+    """What both tallies counted since `before` (a `count_snapshot()`)."""
+    return tuple({k: n - old.get(k, 0) for k, n in now.items()
+                  if n != old.get(k, 0)}
+                 for now, old in zip(count_snapshot(), before))
+
+
+def add_counts(delta: tuple[dict, dict], times: int = 1):
+    """Advance both tallies by `times` x `delta` (a `counts_since` result).
+    The wrappers count in Python, so a call captured in a CUDA graph counts
+    once, at capture, and nothing when the graph replays: the graph's owner
+    takes the capture's counts back (`times=-1`) and adds them per replay."""
+    launches, dispatch = delta
+    for counts in (_bh.LAUNCHES, _hq.LAUNCHES, _i4.LAUNCHES, _pa.LAUNCHES):
+        for k in counts:
+            counts[k] += times * launches.get(k, 0)
+    for k, n in dispatch.items():
+        _DISPATCH[k] = _DISPATCH.get(k, 0) + times * n
 
 
 def kernels_enabled() -> bool:

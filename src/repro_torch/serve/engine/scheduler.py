@@ -10,7 +10,12 @@ Scheduling model (one `step()` = one engine iteration):
   2. **Decode** - every generating sequence advances one token in a single
      batched `forward_chunk` call with per-slot fill positions and
      block-table rows, padded to `max_seqs` rows so the kernels see fixed
-     shapes. Table widths are padded to powers of two.
+     shapes. Table widths are padded to powers of two. Forward, sampling
+     and the per-row max logit are one fused dispatch (`_fused`, the
+     reference's counterpart): on the card a CUDA graph per variant - table
+     width, probe, sampling, filtering - captured at the variant's first
+     step and replayed at every later one, its inputs copied into static
+     buffers first and its tokens read back in one transfer.
   3. **Chunked prefill** - the rest of the per-step token budget goes to the
      head-of-line prompt, `prefill_chunk` tokens at a time, chunks padded to
      the next power of two.
@@ -44,6 +49,7 @@ prefix cache and the host swap tier (ROADMAP Queue A5).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any
 
@@ -57,6 +63,7 @@ from ..telemetry.schema import (REQUIRED_COUNTERS, REQUIRED_GAUGES,
                                 REQUIRED_HISTOGRAMS)
 from ..telemetry.trace import PID_REQUESTS, Tracer
 from .adapter import ServableModel
+from .graphs import CapturedCall, pool_bytes
 from .pages import PagedKVCache, pages_for
 
 
@@ -101,11 +108,11 @@ def _sample_tokens(uniforms: torch.Tensor, logits: torch.Tensor,
     disables). Row i draws by inverse CDF from `uniforms[i]`, so a row's
     token depends on its own uniform only. `filtered=False` (the scheduler
     knows host-side when every row has filtering off) skips the two
-    full-vocabulary sorts."""
+    full-vocabulary sorts. Nothing here reads the device on the host, so
+    the sampler can be captured in a CUDA graph; a batch with no sampling
+    row is the caller's to send to argmax (`_pick_tokens`)."""
     v = logits.shape[-1]
     greedy = torch.argmax(logits, dim=-1)
-    if not bool((temps > 0).any()):
-        return greedy
     scaled = logits / torch.where(temps > 0, temps,
                                   torch.ones_like(temps))[:, None]
     neg_inf = torch.full_like(scaled, -torch.inf)
@@ -129,6 +136,23 @@ def _sample_tokens(uniforms: torch.Tensor, logits: torch.Tensor,
     u = uniforms.to(cdf.device)[:, None] * cdf[:, -1:]
     sampled = torch.searchsorted(cdf, u, right=True)[:, 0].clamp_(max=v - 1)
     return torch.where(temps > 0, sampled, greedy)
+
+
+def _pick_tokens(lg: torch.Tensor, temps=None, top_ks=None, top_ps=None,
+                 uniforms=None, *, samples: bool, filtered: bool):
+    """The next token and the max logit of each row of `lg` [B, V] (f32)
+    as one [2, B] float64 tensor on lg's device, so the host reads both in
+    one transfer. `samples` (host-known: some row has temperature > 0)
+    selects `_sample_tokens` over argmax. The per-row max logit is what the
+    non-finite sentinel reads to flag poisoned rows without pulling the
+    full logits off the device."""
+    if samples:
+        toks = _sample_tokens(uniforms, lg, temps, top_ks, top_ps,
+                              filtered=filtered)
+    else:
+        toks = torch.argmax(lg, dim=-1)
+    return torch.stack([toks.to(torch.float64),
+                        lg.amax(dim=-1).to(torch.float64)])
 
 
 @dataclasses.dataclass
@@ -189,7 +213,12 @@ _UNPORTED = {
 
 class ServeEngine:
     """Paged-KV continuous-batching engine over a `ServableModel`. The
-    engine runs on the adapter's device (that of its parameters)."""
+    engine runs on the adapter's device (that of its parameters).
+
+    `eager=True` dispatches each decode step directly, without the static
+    buffers and graphs of `_fused`: the comparison the tests and
+    `chip_smoke.py` make. No launcher flag sets it, as the reference has
+    none."""
 
     def __init__(self, adapter: ServableModel, *, n_pages: int,
                  page_size: int = 16, max_seqs: int = 4,
@@ -198,7 +227,8 @@ class ServeEngine:
                  admission: str = "reserve",
                  max_context: int | None = None,
                  tracer: Tracer | None = None,
-                 quality_probes: QualityProbes | None = None, **unported):
+                 quality_probes: QualityProbes | None = None,
+                 eager: bool = False, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -235,6 +265,11 @@ class ServeEngine:
         self._committed: dict[int, int] = {}   # rid -> committed page count
         self._committed_total = 0              # == sum(_committed.values())
         self._terminal: list[EngineRequest] = []   # drained by step()
+        # the fused decode dispatches (`_fused`), by (phase,
+        # kernels_enabled(), variant), and the graph memory pool they share
+        self.eager = eager
+        self._graphs: dict[tuple, CapturedCall] = {}
+        self._graph_pool = None
         # telemetry: tracer and quality probes are opt-in and bit-path-
         # neutral
         self.metrics = MetricsRegistry()
@@ -443,77 +478,133 @@ class ServeEngine:
         for req in list(self.decoding):
             self._ensure(req.rid, req.n_cached + 1)
 
+    def _sampling_operands(self, batch, rids, positions) -> dict:
+        """The sampler's per-row operands as host tensors; rows past
+        `len(batch)` are padding (temperature 0: greedy)."""
+        pad = len(rids) - len(batch)
+        return {
+            "temps": torch.tensor([r.sampling.temperature for r in batch]
+                                  + [0.0] * pad, dtype=torch.float32),
+            "top_ks": torch.tensor([r.sampling.top_k for r in batch]
+                                   + [0] * pad, dtype=torch.int64),
+            "top_ps": torch.tensor([r.sampling.top_p for r in batch]
+                                   + [1.0] * pad, dtype=torch.float32),
+            "uniforms": _row_uniforms(self.seed, rids, positions)}
+
     def _sample(self, lg: torch.Tensor, batch, rids, positions):
         """Sample one token per row of `lg` [B, V] (f32) and return
         (tokens, max logit per row) on the host in ONE transfer. Rows past
         `len(batch)` are padding and sample greedily."""
-        pad = lg.shape[0] - len(batch)
-        dev = lg.device
-        temps = torch.tensor([r.sampling.temperature for r in batch]
-                             + [0.0] * pad, dtype=torch.float32, device=dev)
-        if any(r.sampling.temperature > 0 for r in batch):
-            top_ks = torch.tensor([r.sampling.top_k for r in batch]
-                                  + [0] * pad, dtype=torch.int64, device=dev)
-            top_ps = torch.tensor([r.sampling.top_p for r in batch]
-                                  + [1.0] * pad, dtype=torch.float32,
-                                  device=dev)
-            uniforms = _row_uniforms(self.seed, rids, positions)
-            toks = _sample_tokens(uniforms, lg, temps, top_ks, top_ps,
-                                  filtered=self._wants_filtering(batch))
-        else:
-            toks = torch.argmax(lg, dim=-1)
-        # per-row max logit: the non-finite sentinel reads it to flag
-        # poisoned rows without pulling the full logits off the device
-        mx = lg.amax(dim=-1)
-        both = torch.stack([toks.to(torch.float64), mx.to(torch.float64)])
-        both = both.cpu().numpy()
+        samples = any(r.sampling.temperature > 0 for r in batch)
+        ops = {}
+        if samples:
+            ops = {k: v.to(lg.device) for k, v in
+                   self._sampling_operands(batch, rids, positions).items()}
+        picked = _pick_tokens(lg, **ops, samples=samples,
+                              filtered=self._wants_filtering(batch))
+        both = picked.cpu().numpy()
         return both[0].astype(np.int64), both[1]
+
+    def _fused(self, name: str, impl, variant, example: dict) -> CapturedCall:
+        """One fused device dispatch per phase and variant - the port's
+        counterpart of the reference's jit-compiled `_fused`, keyed like it
+        by (phase, kernels_enabled(), variant). The variant holds every
+        choice a graph must fix on the host. On a CUDA device with the
+        kernels enabled the dispatch is captured once and replayed
+        (`graphs.CapturedCall`, every variant in one memory pool);
+        elsewhere, and under `use_kernels(False)` (whose plain versions
+        read the device on the host), it runs directly on the same static
+        buffers. `example` gives the inputs' shapes and dtypes."""
+        enabled = kops.kernels_enabled()
+        key = (name, enabled, variant)
+        call = self._graphs.get(key)
+        if call is None:
+            pool = None
+            if enabled and self.device.type == "cuda":
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                pool = self._graph_pool
+            call = self._graphs[key] = CapturedCall(impl, example,
+                                                    self.device, pool=pool)
+        return call
+
+    def graph_stats(self) -> dict:
+        """The captured dispatches: how many graphs, the seconds their
+        captures took, and the device bytes of their shared memory pool."""
+        calls = [c for c in self._graphs.values() if c.graph is not None]
+        return {"graphs": len(calls),
+                "capture_s": sum(c.capture_s for c in calls),
+                "pool_bytes": (pool_bytes(self._graph_pool)
+                               if self._graph_pool is not None else 0)}
+
+    def _decode_impl(self, tokens, fill, bt, lens, temps=None, top_ks=None,
+                     top_ps=None, uniforms=None, *, samples: bool,
+                     filtered: bool, probe: bool):
+        """One decode step on the device - what `_fused` captures (the
+        reference's `_decode_impl`). The forward writes each new KV row into
+        its page, in place, and attends by walking `bt`; `lens` are the
+        true per-slot context lengths (0 for padded rows), which end the
+        kernel's walk at each sequence's live pages and are each sampled
+        token's stream position. Returns (logits [B, V] f32, tokens and max
+        logits [2, B] f64, the per-layer probe stats or None)."""
+        args = (self.adapter.params, tokens, self.kv.state, fill, bt, lens)
+        if probe:
+            logits, _, stats = self.adapter.forward_chunk(*args, probe=True)
+        else:
+            (logits, _), stats = self.adapter.forward_chunk(*args), None
+        lg = logits[:, 0].to(torch.float32)
+        return lg, _pick_tokens(lg, temps, top_ks, top_ps, uniforms,
+                                samples=samples, filtered=filtered), stats
 
     def _decode_once(self) -> list[EngineRequest]:
         batch = self.decoding
         b = self.max_seqs
         m = self.metrics
-        dev = self.device
         pad = b - len(batch)
         rids = [r.rid for r in batch] + [None] * pad
         new_lens = [r.n_cached + 1 for r in batch]
         n_cols = _next_pow2(max(
-            pages_for(r.n_cached + 1, self.kv.page_size) for r in batch))
-        bt = self.kv.block_table_array(rids, n_cols)
+            pages_for(n, self.kv.page_size) for n in new_lens))
         m.counter("engine.pages_walked").inc(
             sum(pages_for(n, self.kv.page_size) for n in new_lens))
         m.counter("engine.pages_walked_dense").inc(b * n_cols)
-        tokens = torch.tensor([[r.next_token] for r in batch] + [[0]] * pad,
-                              dtype=torch.int64, device=dev)
-        fill = torch.tensor([r.n_cached for r in batch] + [0] * pad,
-                            dtype=torch.int32, device=dev)
-        # true per-slot context lengths (0 for padded rows): the kernel's
-        # ragged early exit walks only each sequence's live pages; they are
-        # also each sampled token's stream position
-        lens = torch.tensor(new_lens + [0] * pad, dtype=torch.int32,
-                            device=dev)
+        inputs = {
+            "tokens": torch.tensor([[r.next_token] for r in batch]
+                                   + [[0]] * pad, dtype=torch.int64),
+            "fill": torch.tensor([r.n_cached for r in batch] + [0] * pad,
+                                 dtype=torch.int32),
+            "bt": self.kv.block_table_array(rids, n_cols),
+            "lens": torch.tensor(new_lens + [0] * pad, dtype=torch.int32),
+        }
+        samples = any(r.sampling.temperature > 0 for r in batch)
+        filtered = samples and self._wants_filtering(batch)
+        if samples:
+            inputs.update(self._sampling_operands(
+                batch, [r.rid for r in batch] + [0] * pad,
+                new_lens + [0] * pad))
         probe = (self.quality_probes is not None
                  and self.quality_probes.should_probe())
         m.histogram("engine.decode.batch_occupancy").observe(
             len(batch) / self.max_seqs)
+        impl = functools.partial(self._decode_impl, samples=samples,
+                                 filtered=filtered, probe=probe)
         tr = self.tracer
         ts0 = tr.ts() if tr else 0.0
-        args = (self.adapter.params, tokens, self.kv.state, fill, bt, lens)
-        if probe:
-            logits, self.kv.state, stats = self.adapter.forward_chunk(
-                *args, probe=True)
+        if self.eager:
+            lg, picked, stats = impl(
+                **{k: v.to(self.device) for k, v in inputs.items()})
         else:
-            (logits, self.kv.state), stats = \
-                self.adapter.forward_chunk(*args), None
+            lg, picked, stats = self._fused(
+                "decode", impl, (n_cols, probe, samples, filtered),
+                inputs)(**inputs)
         if tr:
             self._sync()
             tr.complete("dispatch.decode", ts0, tr.ts() - ts0,
                         args={"rows": len(batch), "probe": probe})
         if stats is not None:
             self.quality_probes.record(stats)
-        lg = logits[:, 0].to(torch.float32)
-        toks, mx = self._sample(lg, batch, [r.rid for r in batch] + [0] * pad,
-                                new_lens + [0] * pad)
+        picked = picked.cpu().numpy()
+        toks, mx = picked[0].astype(np.int64), picked[1]
         finite = np.isfinite(mx)
         finished = []
         for i, req in enumerate(list(batch)):

@@ -17,6 +17,7 @@ from repro_torch.serve.engine import (SCRATCH_PAGE, EngineRequest,
                                       derive_state_spec, pages_for)
 from repro_torch.serve.engine import scheduler as sched
 from repro_torch.serve.quantized import QuantizedDenseLM, pack_dense_params
+from repro_torch.serve.telemetry import QualityProbes
 
 # logits bound of the model tests: 5e-3 of max|logit| (rounding ties of the
 # activation quantiser between two summation orders)
@@ -375,3 +376,108 @@ def test_nan_poisoned_row_fails_alone(served):
         assert done[rid].generated == clean[rid].generated
     assert engine.metrics.counter("engine.requests.poisoned").value == 1
     assert engine.kv.allocator.in_use == 0 and not engine.kv.tables
+
+
+# -------------------- the fused decode dispatch --------------------
+
+def _serve_mixed(served, kv_bits, eager):
+    """5 requests over 3 slots with pages of 4 rows, so occupancy changes
+    and decode tables widen 1 -> 2 -> 4 columns; two rows sample (one
+    filtered by top-k, one not) and every third decode dispatch is probed.
+    Returns (engine, requests by rid, both tallies after the run)."""
+    cfg, _ = served
+    _, engine = make_engine(served, kv_bits, page_size=4, n_pages=3 * 5 + 1,
+                            record_logits=True, seed=7, eager=eager,
+                            quality_probes=QualityProbes(every_k=3))
+    samplings = [SamplingParams(max_new=9),
+                 SamplingParams(max_new=6, temperature=0.8, top_k=20),
+                 SamplingParams(max_new=9),
+                 SamplingParams(max_new=4, temperature=1.1),
+                 SamplingParams(max_new=7)]
+    kops.reset_dispatch_counts()
+    kops.reset_kernel_launch_counts()
+    rng = np.random.default_rng(4)
+    for rid, (n, s) in enumerate(zip((2, 7, 3, 5, 8), samplings)):
+        engine.submit(EngineRequest(
+            rid=rid, prompt=rng.integers(0, cfg.vocab, n).tolist(),
+            sampling=s))
+    done = run_checked(engine)
+    return engine, done, kops.count_snapshot()
+
+
+@pytest.mark.parametrize("kv_bits", [None, 4])
+def test_fused_decode_matches_the_direct_path(served, kv_bits):
+    """The same engine, requests and seed dispatched through `_fused`'s
+    static buffers and directly (`eager=True`): tokens, every step's
+    logits and the probe stats equal bit for bit, and the kernel tallies
+    equal, over changing occupancy, table widths, probed and sampled
+    steps."""
+    direct, want, want_counts = _serve_mixed(served, kv_bits, eager=True)
+    fused, got, got_counts = _serve_mixed(served, kv_bits, eager=False)
+    assert sorted(got) == sorted(want) == list(range(5))
+    for rid in want:
+        assert got[rid].generated == want[rid].generated
+        assert len(got[rid].step_logits) == len(want[rid].step_logits)
+        for g, w in zip(got[rid].step_logits, want[rid].step_logits):
+            assert np.array_equal(g, w)
+    assert got_counts == want_counts
+    snap_d, snap_f = direct.metrics_snapshot(), fused.metrics_snapshot()
+    for kind in ("histograms", "gauges"):
+        quality = {k: v for k, v in snap_d[kind].items()
+                   if k.startswith("quality.")}
+        assert quality and quality == {k: snap_f[kind][k] for k in quality}
+    assert snap_f["counters"]["quality.probe_dispatches"] > 1
+    # one static-buffer call per variant met, none in the direct engine
+    variants = {key[2] for key in fused._graphs}
+    assert {v[0] for v in variants} == {1, 2, 4}            # n_cols
+    assert {v[1] for v in variants} == {True, False}        # probe
+    assert {v[2] for v in variants} == {True, False}        # samples
+    assert {v[3] for v in variants} == {True, False}        # filtered
+    assert all(key[:2] == ("decode", True) for key in fused._graphs)
+    assert not direct._graphs
+    assert fused.graph_stats() == {"graphs": 0, "capture_s": 0,
+                                   "pool_bytes": 0}     # nothing captured
+
+
+@pytest.mark.parametrize("change", ["n_cols", "probe", "samples", "filtered",
+                                    "kernels_enabled"])
+def test_fused_variant_cache(served, change):
+    """`_fused` keeps one call per (phase, kernels_enabled(), variant): the
+    same object for the same key, a new one when any part changes."""
+    _, engine = make_engine(served)
+    example = {"x": torch.zeros(2)}
+    base = (1, False, False, False)       # (n_cols, probe, samples, filtered)
+    call = engine._fused("decode", torch.neg, base, example)
+    assert engine._fused("decode", torch.neg, base, example) is call
+    if change == "kernels_enabled":
+        with kops.use_kernels(False):
+            other = engine._fused("decode", torch.neg, base, example)
+            assert engine._fused("decode", torch.neg, base, example) is other
+    else:
+        i = ("n_cols", "probe", "samples", "filtered").index(change)
+        variant = base[:i] + ((2 if i == 0 else True),) + base[i + 1:]
+        other = engine._fused("decode", torch.neg, variant, example)
+    assert other is not call
+    assert engine._fused("decode", torch.neg, base, example) is call
+    assert call.pool is None and other.pool is None     # the CPU: no capture
+    assert len(engine._graphs) == 2
+
+
+def test_sampler_reads_nothing_on_the_host():
+    """The sampler runs on meta tensors, which refuse every read of a
+    value on the host, so nothing in it stops a CUDA-graph capture; with
+    no sampling row it gives the argmax, as the early exit it lost did."""
+    rng = np.random.default_rng(2)
+    lg = torch.from_numpy(rng.standard_normal((3, 50)).astype(np.float32))
+    temps = torch.tensor([0.0, 0.7, 1.3])
+    ks, ps = torch.tensor([0, 5, 0]), torch.tensor([1.0, 1.0, 0.5])
+    u = torch.tensor([0.3, 0.6, 0.9], dtype=torch.float64)
+    meta = [t.to("meta") for t in (lg, temps, ks, ps, u)]
+    for filtered in (True, False):
+        picked = sched._pick_tokens(*meta, samples=True, filtered=filtered)
+        assert picked.shape == (2, 3) and picked.dtype == torch.float64
+    toks = sched._sample_tokens(u, lg, torch.zeros(3), ks, ps)
+    assert toks.tolist() == lg.argmax(-1).tolist()
+    picked = sched._pick_tokens(lg, samples=False, filtered=False)
+    assert picked[0].tolist() == lg.argmax(-1).double().tolist()
+    assert torch.equal(picked[1], lg.amax(-1).double())

@@ -8,16 +8,27 @@ skips. Run them on the machine with the card:
 (`python3 chip_smoke.py` runs the same comparisons at the serving path's
 full-width shapes and then serves a model through the kernels.)
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_config
+from repro_torch.core.synthetic import inject_outlier_channels
 from repro_torch.kernels import _scratch
 from repro_torch.kernels import block_hadamard as BH
 from repro_torch.kernels import hadamard_quant as HQ
 from repro_torch.kernels import int4_matmul as I4
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.launch.serve import init_dense_params
+from repro_torch.serve.engine import (EngineRequest, SamplingParams,
+                                      ServeEngine, as_servable)
+from repro_torch.serve.quantized import QuantizedDenseLM, pack_dense_params
+from repro_torch.serve.telemetry import QualityProbes
 
 pytestmark = pytest.mark.gpu
 
@@ -616,3 +627,172 @@ def test_block_hadamard_kernel_non_contiguous(dev, dtype):
         atol = 2e-5 * float(want.float().abs().max())
         rtol = 0 if dtype == torch.float32 else 2 ** -7
         torch.testing.assert_close(y.float(), want.float(), rtol=rtol, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# The engine's decode step as one captured CUDA graph per variant
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def served_gpu():
+    """The reduced llama3-1b, seeded and packed on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU form)")
+    cfg = get_config("llama3-1b").reduced()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    packed = pack_dense_params(
+        inject_outlier_channels(init_dense_params(cfg, gen)), cfg)
+    return cfg, packed
+
+
+# 5 requests over 3 slots, pages of 4 rows: occupancy changes, decode tables
+# widen from 1 column to 8 (8 takes attention's split path), at least
+# 10 decode steps per request; rid 1 samples with top-k and top-p, rid 3
+# without filters
+GRAPH_REQUESTS = ((3, dict(max_new=20)),
+                  (12, dict(max_new=16, temperature=0.9, top_k=30, top_p=0.9)),
+                  (6, dict(max_new=18)),
+                  (14, dict(max_new=10, temperature=1.2)),
+                  (9, dict(max_new=20)))
+
+
+def _serve_graphed(served, eager, on_step=None):
+    """Serve GRAPH_REQUESTS with every count set to 0 first; probes on every
+    third decode dispatch. -> (engine, requests by rid, both tallies)."""
+    cfg, packed = served
+    qlm = QuantizedDenseLM(cfg, block_size=16, kv_bits=4)
+    engine = ServeEngine(as_servable(qlm, packed), n_pages=3 * 8 + 1,
+                         page_size=4, max_seqs=3, prefill_chunk=8, seed=5,
+                         record_logits=True, eager=eager,
+                         quality_probes=QualityProbes(every_k=3))
+    rng = np.random.default_rng(6)
+    for rid, (n, sampling) in enumerate(GRAPH_REQUESTS):
+        engine.submit(EngineRequest(
+            rid=rid, prompt=rng.integers(0, cfg.vocab, n).tolist(),
+            sampling=SamplingParams(**sampling)))
+    kops.reset_kernel_launch_counts()
+    kops.reset_dispatch_counts()
+    done = []
+    while engine.queue or engine.active:
+        done.extend(engine.step())
+        if on_step is not None:
+            on_step(engine)
+    torch.cuda.synchronize()
+    engine.check_books()
+    return engine, {r.rid: r for r in done}, kops.count_snapshot()
+
+
+def _assert_same_service(got, want):
+    assert sorted(got) == sorted(want) == list(range(len(GRAPH_REQUESTS)))
+    for rid, r in want.items():
+        assert r.outcome == got[rid].outcome == "length"
+        assert got[rid].generated == r.generated
+        assert len(got[rid].step_logits) == len(r.step_logits)
+        for g, w in zip(got[rid].step_logits, r.step_logits):
+            assert np.array_equal(g, w)
+
+
+def test_graphed_decode_bit_equal_to_eager(served_gpu):
+    """The same requests served with each decode step replayed from its
+    variant's graph and eagerly: tokens (sampled rows included), every
+    step's logits and the probe stats bit-equal; launch counts and dispatch
+    tallies equal, none of them plain."""
+    eager, want, want_counts = _serve_graphed(served_gpu, eager=True)
+    graphed, got, got_counts = _serve_graphed(served_gpu, eager=False)
+    _assert_same_service(got, want)
+    assert got_counts == want_counts
+    assert not any(path == "ref" for _, path in got_counts[1])
+    snap_e, snap_g = eager.metrics_snapshot(), graphed.metrics_snapshot()
+    quality = {k: v for k, v in snap_e["histograms"].items()
+               if k.startswith("quality.")}
+    assert quality == {k: snap_g["histograms"][k] for k in quality}
+    assert snap_g["counters"]["quality.probe_dispatches"] >= 5
+    stats = graphed.graph_stats()
+    decodes = snap_g["histograms"]["engine.decode.batch_occupancy"]["count"]
+    assert decodes >= 16 and 4 <= stats["graphs"] < decodes   # replays ran
+    assert {key[2][0] for key in graphed._graphs} >= {1, 4, 8}   # n_cols
+    assert stats["pool_bytes"] > 0 and stats["capture_s"] > 0
+    assert not eager._graphs
+
+
+def test_graphed_decode_keeps_its_scratch(served_gpu, monkeypatch):
+    """Scratch starts empty; right after the first graph that takes
+    attention's split path (8 columns) is captured, eager calls grow
+    `int4_matmul`'s workspace and attention's merge counters. The graphs
+    captured before keep replaying on their own arrays: the service stays
+    bit-equal to the eager engine's."""
+    monkeypatch.setattr(I4, "_WORKSPACE", {})
+    monkeypatch.setattr(PA, "_COUNTERS", {})
+    dev = torch.device("cuda", 0)
+    key = torch.cuda.current_device()
+    grown = []
+
+    def grow(engine):
+        if grown or not any(k[2][0] == 8 and c.graph is not None
+                            for k, c in engine._graphs.items()):
+            return
+        ws, cnt = I4._WORKSPACE[key][0].numel(), PA._COUNTERS[key][0].numel()
+        rng = np.random.default_rng(9)
+        qa = torch.from_numpy(rng.integers(0, 16, (64, 2048)).astype(np.int8)).to(dev)
+        wp = torch.from_numpy(rng.integers(0, 256, (1024, 2048)).astype(np.uint8)).to(dev)
+        _integer_part(qa, wp)
+        args, kw = _attention_inputs(dev, "int4", 16, 1, 4, 64, [120] * 32, 8,
+                                     torch.bfloat16, kh=8)
+        PA.paged_attention(*args, **kw)
+        assert I4._WORKSPACE[key][0].numel() > ws
+        assert PA._COUNTERS[key][0].numel() > cnt
+        grown.append(len(engine._graphs))
+
+    _, want, _ = _serve_graphed(served_gpu, eager=True)
+    graphed, got, _ = _serve_graphed(served_gpu, eager=False, on_step=grow)
+    assert grown
+    _assert_same_service(got, want)
+
+
+FORCED_CAPTURE_ERROR = r"""
+import sys
+import torch
+sys.path.insert(0, "src")
+from repro_torch.configs.registry import get_config
+from repro_torch.core.synthetic import inject_outlier_channels
+from repro_torch.launch.serve import init_dense_params
+from repro_torch.serve.engine import (EngineRequest, IntegerModelAdapter,
+                                      SamplingParams, ServeEngine)
+from repro_torch.serve.quantized import QuantizedDenseLM, pack_dense_params
+
+
+class ReadsTheHost(IntegerModelAdapter):
+    # a forward that reads the device on the host, as the plain versions do
+    def forward_chunk(self, params, tokens, *a, **k):
+        int(tokens.max())
+        return super().forward_chunk(params, tokens, *a, **k)
+
+
+cfg = get_config("llama3-1b").reduced()
+gen = torch.Generator(device="cuda")
+gen.manual_seed(0)
+packed = pack_dense_params(inject_outlier_channels(init_dense_params(cfg, gen)), cfg)
+engine = ServeEngine(ReadsTheHost(QuantizedDenseLM(cfg, block_size=16, kv_bits=4), packed),
+                     n_pages=9, page_size=4, max_seqs=2, prefill_chunk=8)
+engine.submit(EngineRequest(rid=0, prompt=[1, 2, 3], sampling=SamplingParams(max_new=4)))
+engine.step()                     # the prefill, eager
+try:
+    engine.step()                 # the first decode: warm-up, then capture
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0])
+    sys.exit(0)
+print("no error")
+sys.exit(1)
+"""
+
+
+def test_forced_capture_error_raises(served_gpu):
+    """A decode step whose forward reads the device on the host cannot be
+    captured: the step raises, with no eager fallback. In a process of its
+    own, because a failed capture may leave the CUDA context unusable."""
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", FORCED_CAPTURE_ERROR], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "raised:" in out.stdout
