@@ -27,6 +27,13 @@ graphed decode against the eager one. Phases print one JSON line each:
              tokens, logits and counts equal; graphs captured, their pool's
              memory, capture time; host ms per pure decode step of both,
              interleaved
+    robust   the engine's robustness at full width and depth, decode graphed:
+             a reserve baseline, optimistic admission on a pool of 60 % of
+             the worst case (preemption and replay), the same with the host
+             swap tier, the prefix cache on a shared 64-token prefix, a
+             seeded fault plan ending in drain(), and one launcher run with
+             the prefix cache, the swap tier and --drain-after; books every
+             step, tiers empty at the end, tokens against the baseline
     profile  (only with --profile) where a pure decode step's time goes,
              eager and graphed, without and with the probe
     ptxas    (only with --ptxas) registers, spills and shared memory of
@@ -719,8 +726,8 @@ def sweep_hadamard_quant():
 # ---------------------------------------------------------------------------
 
 SERVE_ARGS = ["--arch", "llama3-1b", "--integer-path", "--block-size", "16",
-              "--admission", "reserve", "--slots", "4", "--page-size", "16",
-              "--prefill-chunk", "32", "--max-len", "512", "--device", "cuda"]
+              "--slots", "4", "--page-size", "16", "--prefill-chunk", "32",
+              "--max-len", "512", "--device", "cuda"]
 # the kernels every serve run launches; block_hadamard runs only in the
 # rotation-quality probe (--probe-every)
 MAIN_PATH_KERNELS = ("hadamard_quant", "int4_matmul", "paged_attention",
@@ -728,10 +735,12 @@ MAIN_PATH_KERNELS = ("hadamard_quant", "int4_matmul", "paged_attention",
 PROBE_EVERY = 4
 
 
-def run_launcher(label, extra, expect=MAIN_PATH_KERNELS):
+def run_launcher(label, extra, expect=MAIN_PATH_KERNELS, drained=False):
     """One launcher run with every count set to 0 just before and read just
-    after; every kernel in `expect` must have launched. Returns (the
-    launcher's result, record)."""
+    after; every kernel in `expect` must have launched. Every request ends
+    `length` - or, with `drained` (`--drain-after`), `cancelled` with no
+    token when the drain found it never admitted. Returns (the launcher's
+    result, record)."""
     from repro_torch.launch import serve as serve_cli
     buf = io.StringIO()
     kops.reset_kernel_launch_counts()
@@ -766,7 +775,10 @@ def run_launcher(label, extra, expect=MAIN_PATH_KERNELS):
     problems = []
     if len(done) != int(extra[extra.index("--requests") + 1]):
         problems.append("not every request came back")
-    if rec["outcomes"] != ["length"]:
+    allowed = ["cancelled", "length"] if drained else ["length"]
+    if not set(rec["outcomes"]) <= set(allowed) or any(
+            r.outcome == "cancelled" and (r.generated or r.t_admit)
+            for r in done):
         problems.append(f"outcomes {rec['outcomes']} (a non-finite logit "
                         "row ends as 'failed')")
     if alloc.in_use != 0 or alloc.n_free != alloc.capacity or engine.kv.tables:
@@ -778,6 +790,8 @@ def run_launcher(label, extra, expect=MAIN_PATH_KERNELS):
     if plain:
         problems.append(f"plain versions ran on the main path: {plain}")
     for r in done:
+        if r.outcome == "cancelled":
+            continue
         if len(r.generated) != r.sampling.max_new or \
                 not all(0 <= t < engine.adapter.cfg.vocab for t in r.generated):
             problems.append(f"request {r.rid}: bad token stream")
@@ -884,7 +898,7 @@ def phase_serve():
         fail(f"serve phase: {bad}")
     return {**full["kernel_launches"],
             "block_hadamard": observed["kernel_launches"]["block_hadamard"]}, \
-        adapter
+        adapter, plain_tokens
 
 
 # ---------------------------------------------------------------------------
@@ -991,6 +1005,270 @@ def phase_parity(adapter):
     if not ok:
         fail(f"parity phase: {out}, split path {took_split}, probe neutral "
              f"{probe_neutral}, probe stats {stats}")
+
+
+# ---------------------------------------------------------------------------
+# phase: robust
+# ---------------------------------------------------------------------------
+
+# Replays re-prefill `prompt + generated` in chunks and a prefix hit starts
+# prefill mid-stream, where the undisturbed run decoded position by position
+# or chunked from 0: other summation orders. A request whose tokens differ
+# from the baseline's is held at its first differing position, where both
+# runs saw the same tokens: the logits there agree within REPLAY_FRAC of
+# max|logit| and the baseline's top-2 gap is within twice that (a near tie
+# decided the other way). Later positions follow other tokens and are not
+# compared.
+REPLAY_FRAC = 5e-3
+ROBUST_NEW = 16
+ROBUST_HOST_MB = 256
+
+
+def robust_prompts(vocab, shared=0):
+    """The launcher's prompts for `--requests 8 --prompt-len 40-160 --seed 0
+    [--shared-prefix N]`: the serve phase's full run serves the same."""
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, vocab, size=shared).tolist()
+    return [system + rng.integers(0, vocab, size=int(rng.integers(40, 161))
+                                  ).tolist() for _ in range(8)]
+
+
+class SwapLog:
+    """Wraps an engine's swap-out and swap-in: pages and bytes each way,
+    host ms of each call, and the device time of its copy from the CUDA
+    events the page cache records around it (`kv.last_transfer`)."""
+
+    def __init__(self, kv):
+        self.calls = {"out": [], "in": []}
+        for way, name in (("out", "swap_out"), ("in", "swap_in")):
+            setattr(kv, name, self._wrap(kv, way, getattr(kv, name)))
+
+    def _wrap(self, kv, way, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            n, nbytes = fn(*a, **k)
+            host = time.perf_counter() - t0
+            if n:
+                self.calls[way].append((n, nbytes, host, kv.last_transfer))
+            return n, nbytes
+        return timed
+
+    def summary(self) -> dict:
+        """Per direction: the totals, host ms per page of the first call
+        (which carries the process's first use of the copy path) and of
+        the later ones, and each call's pages, host ms, copy device ms (the
+        events bracket the copies as Python issues them, so they bound the
+        copy's device time from above) and GB/s."""
+        torch.cuda.synchronize()
+        out = {}
+        for way, calls in self.calls.items():
+            rows = [{"pages": n, "host_ms": 1e3 * host,
+                     "copy_device_ms": ev[0].elapsed_time(ev[1])
+                     if ev is not None else None}
+                    for n, _, host, ev in calls]
+            for row, (_, nbytes, _, _) in zip(rows, calls):
+                ms = row["copy_device_ms"]
+                row["copy_gb_s"] = nbytes / ms / 1e6 if ms else None
+            pages = sum(c[0] for c in calls)
+            later = rows[1:]
+            out[way] = {
+                "calls": len(calls), "pages": pages,
+                "bytes": sum(c[1] for c in calls),
+                "host_ms_per_page_first_call": (
+                    rows[0]["host_ms"] / rows[0]["pages"] if rows else None),
+                "host_ms_per_page_later_calls": (
+                    sum(r["host_ms"] for r in later)
+                    / sum(r["pages"] for r in later) if later else None),
+                "per_call": rows}
+        return out
+
+
+def first_divergence(got, want):
+    """None when the tokens are equal; else the first differing position
+    with the logits of both runs there, held to REPLAY_FRAC."""
+    if got.generated == want.generated:
+        return None
+    i = next(j for j, (a, b) in enumerate(zip(got.generated, want.generated))
+             if a != b)
+    g, w = got.step_logits[i], want.step_logits[i]
+    bound = REPLAY_FRAC * float(np.abs(w).max())
+    top2 = np.sort(w)[-2:]
+    err = float(np.abs(g - w).max())
+    gap = float(top2[1] - top2[0])
+    return {"rid": got.rid, "position": i, "max_abs_diff": err,
+            "bound": bound, "baseline_top2_gap": gap,
+            "ok": err <= bound and gap <= 2 * bound}
+
+
+def robust_run(label, adapter, prompts, *, base=None, drain_at=None,
+               expect=None, **engine_kw):
+    """Serve `prompts` (16 new tokens each) through a fresh engine with the
+    counts set to 0 just before and read just after; books checked after
+    every step; optionally drain after `drain_at` steps. Gates: each
+    request's outcome (`expect`: rid -> outcome, else "length"), both tiers
+    empty at the end, the main path's kernels launched and no plain
+    version, decode graphed, and tokens against `base` (rid -> request) as
+    `first_divergence` says. Returns (requests by rid, record)."""
+    from repro_torch.serve.engine import (EngineRequest, SamplingParams,
+                                          ServeEngine)
+    engine = ServeEngine(adapter, page_size=16, max_seqs=4, prefill_chunk=32,
+                         record_logits=True, **engine_kw)
+    swaps = SwapLog(engine.kv)
+    for rid, p in enumerate(prompts):
+        engine.submit(EngineRequest(
+            rid=rid, prompt=p, sampling=SamplingParams(max_new=ROBUST_NEW)))
+    kops.reset_kernel_launch_counts()
+    kops.reset_dispatch_counts()
+    problems, done = [], []
+    t0 = time.perf_counter()
+    while (engine.queue or engine.active) and (
+            drain_at is None or engine.n_steps < drain_at):
+        done.extend(engine.step())
+        engine.check_books()
+    if drain_at is not None:
+        done.extend(engine.drain())      # asserts books and empty tiers
+    elif engine.prefix_cache is not None:
+        engine.prefix_cache.clear()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, dispatch = kops.count_snapshot()
+    engine.check_books()
+    done = {r.rid: r for r in done}
+    alloc, host = engine.kv.allocator, engine.kv.host_pool
+    if sorted(done) != list(range(len(prompts))):
+        problems.append("not every request came back")
+    outcomes = {rid: r.outcome for rid, r in done.items()}
+    want = {rid: (expect or {}).get(rid, "length") for rid in done}
+    if outcomes != want:
+        problems.append(f"outcomes {outcomes}, expected {want}")
+    if alloc.in_use or engine.kv.tables or (host and host.in_use):
+        problems.append("pages or host slots left in use")
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] <= 0:
+            problems.append(f"kernel {name} was never launched")
+    plain = {e: n for (e, path), n in dispatch.items() if path == "ref"}
+    if plain:
+        problems.append(f"plain versions ran: {plain}")
+    stats = engine.graph_stats()
+    if not stats["graphs"]:
+        problems.append("decode was not graphed")
+    divergences = []
+    if base is not None:
+        for rid, r in done.items():
+            if r.outcome == "length" and base[rid].outcome == "length":
+                d = first_divergence(r, base[rid])
+                if d is not None:
+                    divergences.append(d)
+        if not all(d["ok"] for d in divergences):
+            problems.append(f"tokens differ beyond a near tie: {divergences}")
+    c = engine.metrics.counter
+    rec = {
+        "label": label, "n_pages": alloc.n_pages,
+        "admission": engine.admission, "outcomes": outcomes,
+        "engine_steps": engine.n_steps, "wall_s": wall,
+        "preemptions": c("engine.preemptions").value,
+        "replayed_prefill_tokens": c("engine.replayed_prefill_tokens").value,
+        "prefill_tokens": engine.n_prefill_tokens,
+        "prefix_hits": c("engine.prefix.hits").value,
+        "prefix_hit_tokens": c("engine.prefix.hit_tokens").value,
+        "cow_copies": c("engine.prefix.cow_copies").value,
+        "dispatch_faults": c("engine.dispatch.faults").value,
+        "swap": swaps.summary(),
+        "swap_counts": {k: c(f"engine.swap.{k}").value
+                        for k in ("out", "in", "retries", "fallbacks")},
+        "page_bytes": engine.kv.page_bytes,
+        "graphs_captured": stats["graphs"],
+        "kernel_launches": {k: launches[k] for k in MAIN_PATH_KERNELS},
+        "plain_dispatches": plain,
+        "tokens_equal_to_baseline": (None if base is None else sum(
+            done[r].generated == base[r].generated for r in done
+            if done[r].outcome == "length")),
+        "divergences": divergences,
+    }
+    rec["problems"] = problems
+    return done, rec
+
+
+def phase_robust(adapter, serve_tokens):
+    """The engine's robustness at full width and depth, decode graphed (see
+    the module docstring), and the serve phase's full run - optimistic
+    admission, the launcher's default - against a reserve run of the same
+    requests: the same tokens."""
+    from repro_torch.serve.engine import FaultPlan, pages_for
+    vocab = adapter.cfg.vocab
+    prompts = robust_prompts(vocab)
+    worst = max(pages_for(len(p) + ROBUST_NEW, 16) for p in prompts)
+    runs = []
+    base, rec = robust_run("reserve, worst-case pool", adapter, prompts,
+                           n_pages=4 * worst + 1, admission="reserve")
+    if [base[r].generated for r in sorted(base)] != serve_tokens:
+        rec["problems"].append("the serve phase's optimistic run gave other "
+                               "tokens than this reserve run")
+    runs.append(rec)
+    # 60 % of the worst case, no headroom watermark: four prompts fit, and
+    # their decode growth exhausts the pool
+    tight = dict(n_pages=int(0.6 * 4 * worst) + 1, headroom_pages=0,
+                 max_preemptions=10)
+    _, rec = robust_run("optimistic, 60 % pool", adapter, prompts, base=base,
+                        **tight)
+    if not (rec["preemptions"] > 0 and rec["replayed_prefill_tokens"] > 0):
+        rec["problems"].append("no preemption and replay")
+    runs.append(rec)
+    _, rec = robust_run("optimistic, 60 % pool, host swap tier (always)",
+                        adapter, prompts, base=base, swap_host_mb=ROBUST_HOST_MB,
+                        swap_policy="always", **tight)
+    if not (rec["swap_counts"]["out"] > 0 and rec["swap_counts"]["in"] > 0):
+        rec["problems"].append("no swap-out and swap-in")
+    runs.append(rec)
+    shared = robust_prompts(vocab, shared=64)
+    worst_s = max(pages_for(len(p) + ROBUST_NEW, 16) for p in shared)
+    cold, rec = robust_run("shared 64-token prefix, no cache", adapter, shared,
+                           n_pages=4 * worst_s + 1)
+    runs.append(rec)
+    _, rec = robust_run("shared 64-token prefix, prefix cache", adapter,
+                        shared, base=cold, n_pages=4 * worst_s + 1,
+                        prefix_cache=True)
+    if not (rec["prefix_hits"] > 0
+            and rec["prefill_tokens"] < runs[-1]["prefill_tokens"]):
+        rec["problems"].append("no prefix hit, or no prefill token saved")
+    runs.append(rec)
+    plan = FaultPlan(seed=5, exhaust_steps=(6, 14, 30),
+                     dispatch_fail_steps=(4, 18), dispatch_delay_steps=(9,),
+                     dispatch_delay_s=0.002, cancel_at={3: (1,)},
+                     expire_at={2: (6,)})
+    # rid 1 cancelled mid-flight, rid 6 expired in the queue, rid 7 never
+    # admitted before the drain at step 24 (so cancelled by it)
+    _, rec = robust_run("fault plan, drain after 24 steps", adapter, prompts,
+                        base=base, n_pages=4 * worst + 1, faults=plan,
+                        max_preemptions=10, drain_at=24,
+                        expect={1: "cancelled", 6: "expired", 7: "cancelled"})
+    if not (rec["preemptions"] > 0 and rec["dispatch_faults"] == 3):
+        rec["problems"].append("the plan's exhaustions or dispatch faults "
+                               "did not fire")
+    runs.append(rec)
+    result, rec = run_launcher(
+        "launcher: --prefix-cache --shared-prefix 32 --swap-host-mb 64 "
+        "--drain-after 20, 2 layers",
+        ["--layers", "2", "--kv-bits", "4", "--requests", "8", "--max-new",
+         "8", "--prompt-len", "60-100", "--prefix-cache", "--shared-prefix",
+         "32", "--swap-host-mb", "64", "--drain-after", "20"], drained=True)
+    snap = result["snapshot"]
+    rec["prefix_hits"] = snap["counters"]["engine.prefix.hits"]
+    rec["host_pages_capacity"] = snap["gauges"]["engine.swap.host_pages_capacity"]
+    if not (rec["prefix_hits"] > 0 and rec["host_pages_capacity"] > 0
+            and result["engine"].kv.host_pool.in_use == 0):
+        rec["problems"].append("no prefix hit, or the host tier missing or "
+                               "not empty")
+    runs.append(rec)
+    for r in runs:
+        r["ok"] = not r["problems"]
+    ok = all(r["ok"] for r in runs)
+    emit("robust", ok=ok, runs=runs,
+         tolerance=f"tokens equal, or at the first differing position logits "
+                   f"within {REPLAY_FRAC} of max|logit| and the baseline's "
+                   "top-2 gap within twice that")
+    if not ok:
+        fail(f"robust phase: {[(r['label'], r['problems']) for r in runs]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1313,9 +1591,10 @@ def main(argv=None):
     cases = phase_kernels()
     if args.sweep:
         phase_sweep()
-    launches, adapter = phase_serve()
+    launches, adapter, serve_tokens = phase_serve()
     phase_parity(adapter)
     phase_graph(adapter)
+    phase_robust(adapter, serve_tokens)
     if args.profile:
         phase_profile(adapter)
     print(smi, flush=True)

@@ -10,9 +10,16 @@ packed-int4 integer path (`--integer-path`, dense archs, optional
 `--kv-bits {4,8}` integer KV pages) with `--preset rtn_only`: the weights
 are freshly initialised from a seeded generator, given LLM-like outlier
 channels, and rounded to nearest on a per-channel symmetric int4 grid. The
-calibrated presets, the bf16 and fake-quant paths, the prefix cache and the
-swap tier are not ported yet; asking for one exits with a line naming the
-ROADMAP queue item.
+calibrated presets and the bf16 and fake-quant paths are not ported yet;
+asking for one exits with a line naming the ROADMAP queue item.
+
+The engine options are the JAX launcher's: `--admission` (`optimistic`, the
+default, or `reserve`), `--deadline-s`, `--prefix-cache` /
+`--prefix-cache-pages` (with `--shared-prefix N` to give every prompt the
+same N-token system prompt), `--swap-host-mb` / `--swap-policy` and
+`--drain-after N` (after N engine steps stop admission and drain). The pool
+is sized for every slot's worst case, so the launcher itself never
+preempts.
 
 Observability, as in the JAX launcher: `--metrics-json PATH` writes the
 engine's schema-validated registry snapshot, `--trace PATH` records request
@@ -155,21 +162,37 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--probe-every", type=int, default=0, metavar="K",
                     help="sample rotation-quality activation probes every "
                     "K decode dispatches (integer path only; 0 disables)")
-    ap.add_argument("--admission", default="reserve",
+    ap.add_argument("--admission", default="optimistic",
                     choices=["optimistic", "reserve"],
-                    help="admission policy: reserve commits worst-case "
-                    "pages up front and never preempts")
-    ap.add_argument("--deadline-s", type=float, default=None)
-    ap.add_argument("--prefix-cache", action="store_true")
+                    help="admission policy: optimistic (prompt pages + "
+                    "headroom, preemption-backed) or reserve (worst-case "
+                    "pages up front, never preempts)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request TTL in seconds, enforced at step "
+                    "boundaries (expired requests return their pages)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="enable the prefix-sharing radix cache "
+                    "(refcounted copy-on-write KV pages)")
     ap.add_argument("--prefix-cache-pages", type=int, default=None,
-                    metavar="N")
+                    metavar="N", help="LRU budget of pool pages the radix "
+                    "tree may hold (default: unbounded - pressure evicts)")
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
                     help="prepend the same N-token system prompt to every "
-                    "request")
-    ap.add_argument("--swap-host-mb", type=float, default=None, metavar="MB")
+                    "request (exercises the prefix cache)")
+    ap.add_argument("--swap-host-mb", type=float, default=None, metavar="MB",
+                    help="attach a host KV swap tier of this many MiB: "
+                    "under page pressure the engine may swap a victim's "
+                    "pages to host instead of preempting it for recompute")
     ap.add_argument("--swap-policy", default="cost",
-                    choices=["never", "cost", "always"])
-    ap.add_argument("--drain-after", type=int, default=None, metavar="N")
+                    choices=["never", "cost", "always"],
+                    help="when to prefer swap over recompute-by-replay "
+                    "under pressure: cost-model the round-trip bytes vs "
+                    "replayed tokens (default), always swap, or never")
+    ap.add_argument("--drain-after", type=int, default=None, metavar="N",
+                    help="after N engine steps stop admission and drain: "
+                    "never-admitted requests cancel, in-flight work "
+                    "(swapped residents included) finishes, and the engine "
+                    "asserts every tier came back empty")
     return ap
 
 
@@ -184,17 +207,6 @@ def _refuse_unported(args):
         (args.preset != "rtn_only",
          f"--preset {args.preset}: PTQ calibration is ROADMAP Queue A9; "
          "use --preset rtn_only"),
-        (args.prefix_cache or args.prefix_cache_pages is not None,
-         "--prefix-cache: the radix cache is ROADMAP Queue A5"),
-        (args.swap_host_mb is not None,
-         "--swap-host-mb: the host swap tier is ROADMAP Queue A5"),
-        (args.drain_after is not None,
-         "--drain-after: drain is ROADMAP Queue A5"),
-        (args.deadline_s is not None,
-         "--deadline-s: request deadlines are ROADMAP Queue A5"),
-        (args.admission == "optimistic",
-         "--admission optimistic: preemption and replay are ROADMAP "
-         "Queue A5; use --admission reserve"),
     ]
     for cond, msg in waits:
         if cond:
@@ -261,8 +273,13 @@ def main(argv=None):
                          max_seqs=args.slots,
                          prefill_chunk=args.prefill_chunk,
                          admission=args.admission, seed=args.seed,
+                         deadline_s=args.deadline_s,
                          max_context=max(args.max_len,
                                          per_seq * args.page_size),
+                         prefix_cache=args.prefix_cache,
+                         prefix_cache_pages=args.prefix_cache_pages,
+                         swap_host_mb=args.swap_host_mb,
+                         swap_policy=args.swap_policy,
                          tracer=tracer, quality_probes=probes)
     for rid, prompt in enumerate(prompts):
         engine.submit(EngineRequest(
@@ -270,7 +287,14 @@ def main(argv=None):
             sampling=SamplingParams(temperature=args.temperature,
                                     max_new=args.max_new,
                                     top_k=args.top_k, top_p=args.top_p)))
-    done = engine.run()
+    if args.drain_after is not None:
+        done = []
+        while (engine.queue or engine.active) \
+                and engine.n_steps < args.drain_after:
+            done.extend(engine.step())
+        done.extend(engine.drain())
+    else:
+        done = engine.run()
     engine.check_books()
     print(f"{label}: served {len(done)} requests over {args.slots} slots "
           f"in {engine.n_steps} engine steps "

@@ -1,4 +1,5 @@
-"""Paged serving state: the KV page pool and its host-side bookkeeping.
+"""Paged serving state: the KV page pool, its host-side bookkeeping and the
+host swap tier.
 
 KV leaves grow with sequence length. They live in one page pool per leaf -
 shape `[n_layers, n_pages, page_size, ...]` - with a host-side block table
@@ -12,29 +13,55 @@ scatters each new KV row into its page and attends by walking the table
 inside `kernels.ops.paged_attention`. No contiguous slab is ever built.
 
 This module keeps the bookkeeping: the refcounted allocator, block tables,
-and release-time scrubbing. `alloc()` hands out pages at refcount 1,
-`incref()` adds a holder, and `free()` decrements, returning a page to the
-free list only when its count hits zero (the pages that actually dropped to
-zero are `free()`'s return value, and exactly those are scrubbed). `alloc()`
-validates before mutating: `MemoryError` on exhaustion leaves the free list
-untouched.
+release-time scrubbing, copy-on-write page copies and the swap tier.
+`alloc()` hands out pages at refcount 1, `incref()` adds a holder, and
+`free()` decrements, returning a page to the free list only when its count
+hits zero (the pages that actually dropped to zero are `free()`'s return
+value, and exactly those are scrubbed). `alloc()` validates before mutating:
+`MemoryError` on exhaustion leaves the free list untouched.
 
 Page 0 is reserved as scratch: padded batch rows and padded block-table
 entries point at it, so their masked reads and dead writes can never touch
 a live sequence's state.
 
 The pool is a set of torch tensors **updated in place** - `scrub` is one
-indexed fill per leaf, and the model's forward writes rows into it; the JAX
-counterpart threads a new pool through every call.
+indexed fill per leaf, `cow_copy` one indexed copy per leaf, and the model's
+forward writes rows into it; the JAX counterpart threads a new pool through
+every call. None of these writes may run while a CUDA graph is being
+captured (the engine's decode graphs read the pool): each raises if one is.
 
-Not ported yet: register slots (SSM state), copy-on-write page copies and
-the host swap tier.
+**The swap tier** (`attach_host_pool`). A block-table entry is a device page
+id (an `int`, the only residency kernels ever see) or a `HostPageRef`
+naming a slot of the `HostSwapPool`: one host tensor per kv leaf, pinned
+when the pool lies on a CUDA device, slot-major so that each slot is one
+contiguous block. On the card the transfers are asynchronous and ordered by
+events on one side stream:
+
+- swap-out gathers the victim's pages into a staging tensor on the compute
+  stream; the side stream waits on an event recorded after the gather and
+  copies staging -> pinned slots (`non_blocking`), then records the copy's
+  event. The victim's device pages are dereffed and scrubbed on the compute
+  stream right after the gather, so stream order makes their reuse safe.
+  The staging tensor stays referenced until the copy's event completes.
+- swap-in waits on that event, copies the pinned slots into a staging tensor
+  on the side stream and records an event; the compute stream waits on it
+  before the scatter into the freshly allocated pages. The host slots return
+  to the free list only after that event completes.
+
+On the CPU the same steps run as plain copies. A failed copy raises.
+`_inflight` holds the device pages inside a transfer window; scrub and COW
+refuse them.
+
+Not ported yet: register slots (SSM state, ROADMAP Queue A10).
 """
 from __future__ import annotations
 
-from typing import Any
+import math
+from typing import Any, Callable
 
 import torch
+
+from ...kernels import ops as kops
 
 Params = dict[str, Any]
 
@@ -135,6 +162,128 @@ class PageAllocator:
         return freed
 
 
+
+
+def _leaf_page_bytes(a: torch.Tensor) -> int:
+    """Bytes one page of pool leaf `a` [n_layers, n_pages, ...] costs."""
+    return a.shape[0] * math.prod(a.shape[2:]) * a.element_size()
+
+
+def _runs(slots: list[int]):
+    """(offset, first slot, length) of each run of consecutive slot ids, so
+    that a run moves in one copy."""
+    i = 0
+    while i < len(slots):
+        j = i + 1
+        while j < len(slots) and slots[j] == slots[j - 1] + 1:
+            j += 1
+        yield i, slots[i], j - i
+        i = j
+
+
+def _done(event) -> bool:
+    return event is None or event.query()
+
+
+class HostPageRef:
+    """Block-table entry for a host-resident page: names a slot of the
+    `HostSwapPool` instead of a device page id. Kernels never see one -
+    `block_table_array` refuses a table holding any - so a sequence with
+    host-resident pages must swap in before dispatch."""
+
+    __slots__ = ("slot",)
+
+    def __init__(self, slot: int):
+        self.slot = slot
+
+    def __repr__(self):
+        return f"HostPageRef({self.slot})"
+
+
+class HostSwapPool:
+    """Host-memory mirror of the device kv page pool - the swap tier.
+
+    One host tensor per kv leaf, `[n_slots, n_layers, page_size, ...]`:
+    slot-major, so a slot is one contiguous block and a run of slots one
+    copy. The tensors are pinned when the pool lies on a CUDA device, which
+    is what lets a copy run asynchronously. Capacity comes from a byte
+    budget and the per-page byte cost of the pool (quantized page formats
+    shrink it 4-8x). Slots are a plain free list: only exclusively held
+    device pages are ever swapped out, so host pages are never shared.
+
+    `release(slots, after=event)` returns slots only once `event` (a copy
+    still reading or writing them) has completed; until then they count as
+    in use. `settle()` waits for every such event."""
+
+    def __init__(self, kv_template: Params, budget_bytes: int):
+        if budget_bytes < 0:
+            raise ValueError("host swap budget must be >= 0 bytes")
+        leaves = list(kv_template.values())
+        self.page_bytes = sum(_leaf_page_bytes(a) for a in leaves)
+        self.capacity = (int(budget_bytes // self.page_bytes)
+                         if self.page_bytes else 0)
+        pin = any(a.device.type == "cuda" for a in leaves)
+        self.buf = {
+            name: torch.zeros((self.capacity, a.shape[0]) + tuple(a.shape[2:]),
+                              dtype=a.dtype, pin_memory=pin)
+            for name, a in kv_template.items()}
+        self._free = list(range(self.capacity - 1, -1, -1))
+        self._free_set = set(self._free)
+        # (event, slots) released while a copy still touches them
+        self._deferred: list[tuple[Any, list[int]]] = []
+
+    def _reap(self, wait: bool = False):
+        keep = []
+        for event, slots in self._deferred:
+            if wait:
+                event.synchronize()
+            if _done(event):
+                self._free.extend(slots)
+                self._free_set.update(slots)
+            else:
+                keep.append((event, slots))
+        self._deferred = keep
+
+    def settle(self):
+        """Wait for every copy that holds released slots, and free them."""
+        self._reap(wait=True)
+
+    @property
+    def n_free(self) -> int:
+        self._reap()
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        return self.capacity - self.n_free
+
+    def take(self, n: int) -> list[int]:
+        """Claim `n` host slots (validated before mutating, like
+        `PageAllocator.alloc`: `MemoryError` leaves the free list whole)."""
+        if n > self.n_free:
+            raise MemoryError(f"host swap tier exhausted: need {n}, "
+                              f"free {len(self._free)}")
+        out = [self._free.pop() for _ in range(n)]
+        self._free_set.difference_update(out)
+        return out
+
+    def release(self, slots: list[int], after=None):
+        """Return slots to the free list (validated as a batch first); with
+        `after`, a CUDA event, only once it has completed."""
+        pending = {s for _, ss in self._deferred for s in ss}
+        batch = set()
+        for s in slots:
+            if s < 0 or s >= self.capacity or s in self._free_set \
+                    or s in pending or s in batch:
+                raise ValueError(f"double/invalid release of host slot {s}")
+            batch.add(s)
+        if _done(after):
+            self._free.extend(slots)
+            self._free_set.update(slots)
+        else:
+            self._deferred.append((after, list(slots)))
+
+
 class PagedKVCache:
     """Pool state + allocator + per-sequence block tables for one served
     model. `state` is the `{"kv": ..., "register": {}}` tree the adapter's
@@ -150,17 +299,40 @@ class PagedKVCache:
         self.state = state
         self.page_size = page_size
         self.allocator = PageAllocator(n_pages)
-        self.tables: dict[int, list[int]] = {}
+        # entries are device page ids (int) or HostPageRef: the per-page
+        # residency ledger lives in the tables themselves
+        self.tables: dict[int, list[int | HostPageRef]] = {}
         leaves = list(state["kv"].values())
         self.device = leaves[0].device if leaves else torch.device("cpu")
-        # bytes one page costs across every kv leaf
-        self.page_bytes = sum(
-            a.shape[0] * a[0, 0].numel() * a.element_size() for a in leaves)
+        # bytes one page costs across every kv leaf (the swap cost unit)
+        self.page_bytes = sum(_leaf_page_bytes(a) for a in leaves)
+        # host swap tier: absent until the engine attaches a budget
+        self.host_pool: HostSwapPool | None = None
+        # device pages inside a swap transfer window right now; scrub and
+        # COW refuse them
+        self._inflight: set[int] = set()
+        # the swap tier's side stream (CUDA only, made at first use), the
+        # event of each swapped-out sequence's device-to-host copy, the
+        # staging tensors kept until their copy's event completes, and the
+        # (start, end) timing events of the last transfer
+        self._stream = None
+        self._out_events: dict[int, Any] = {}
+        self._staged: list[tuple[Any, dict]] = []
+        self.last_transfer = None
         self.pages_scrubbed = 0
+        self.pages_swapped_out = 0
+        self.pages_swapped_in = 0
 
     @property
     def pool(self) -> Params:
         return self.state["kv"]
+
+    def _no_capture(self, what: str):
+        """Pool writes run between graph replays, never inside a capture."""
+        if self.device.type == "cuda" \
+                and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{what} writes the page pool while a CUDA "
+                               "graph is being captured")
 
     def open(self, rid: int):
         if rid in self.tables:
@@ -174,10 +346,20 @@ class PagedKVCache:
         if need > 0:
             table.extend(self.allocator.alloc(need))
 
-    def release(self, rid: int):
-        """Return `rid`'s pages; the ones that dropped to refcount 0 are
-        scrubbed."""
-        self.deref(self.tables.pop(rid))
+    def release(self, rid: int, adopted: int = 0):
+        """Return `rid`'s pages. The first `adopted` table entries'
+        references were taken over by another holder (the radix prefix
+        tree) and are skipped; the rest are dereffed, and only pages that
+        dropped to refcount 0 are scrubbed. Host-resident entries (a
+        swapped-out sequence cancelled, expired or degraded to replay)
+        return their slots to the swap tier once the copy into them has
+        landed."""
+        entries = self.tables.pop(rid)[adopted:]
+        after = self._out_events.pop(rid, None)
+        self.deref([p for p in entries if isinstance(p, int)])
+        host_slots = [e.slot for e in entries if isinstance(e, HostPageRef)]
+        if host_slots:
+            self.host_pool.release(host_slots, after=after)
 
     def deref(self, pages: list[int]):
         """Drop one reference per page; scrub whatever actually freed."""
@@ -185,18 +367,234 @@ class PagedKVCache:
 
     def scrub(self, pages: list[int]):
         """Zero released pages so a recycled page can never leak its
-        predecessor's rows: one indexed fill per pool leaf, in place.
-        Callers pass only pages that dropped to refcount 0 - scrubbing a
-        still-shared page would corrupt every surviving holder."""
+        predecessor's rows: one indexed fill per pool leaf, in place,
+        tallied as one `scrub_state` dispatch under the reference's path
+        tag (`kernels_enabled()`). Callers pass only pages that dropped to
+        refcount 0 - scrubbing a still-shared page would corrupt every
+        surviving holder - and never a page inside a swap transfer."""
+        bad = set(pages) & self._inflight
+        assert not bad, f"scrub of in-flight swap page(s) {sorted(bad)}"
         for p in pages:
             assert self.allocator.refcount(p) == 0, \
                 f"scrub of still-referenced page {p}"
         if not pages or not self.state["kv"]:
             return
+        self._no_capture("scrub")
+        kops._record_dispatch("scrub_state", kops.kernels_enabled())
         idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
         for leaf in self.state["kv"].values():
             leaf.index_fill_(1, idx, 0)
         self.pages_scrubbed += len(pages)
+
+    def cow_copy(self, src: int, dst: int):
+        """Copy-on-write: duplicate page `src` into `dst` on every kv leaf,
+        in place (tallied as one `cow_page_copy` dispatch). The caller owns
+        `dst` exclusively and may then overwrite rows past the shared
+        prefix without disturbing `src`'s other holders. Both ends are live
+        device pages: a host-resident page has no device id, so the asserts
+        pin the residency contract (COW never reads a swapped or in-flight
+        source)."""
+        assert src not in self._inflight and dst not in self._inflight, \
+            f"cow touching in-flight swap page ({src} -> {dst})"
+        assert self.allocator.refcount(src) >= 1, \
+            f"cow from unallocated (or host-resident) page {src}"
+        self._no_capture("cow_copy")
+        kops._record_dispatch("cow_page_copy", kops.kernels_enabled())
+        for leaf in self.state["kv"].values():
+            leaf[:, dst].copy_(leaf[:, src])
+
+    # ------------------------------------------------------------------
+    # host swap tier
+    # ------------------------------------------------------------------
+
+    def attach_host_pool(self, host_mb: float) -> HostSwapPool:
+        """Create the host swap tier under a `host_mb` MiB budget (page
+        capacity = budget // page_bytes; a budget smaller than one page
+        yields capacity 0, which disables swap-out)."""
+        self.host_pool = HostSwapPool(self.state["kv"],
+                                      int(host_mb * 2 ** 20))
+        if self._side_stream() is not None and self.host_pool.capacity:
+            self._prime()
+        return self.host_pool
+
+    def _prime(self):
+        """Pay the transfer path's one-time costs here, not in the first
+        swap a request waits on: the side stream's creation and the first
+        load of the gather and scatter kernels (lazily loaded by CUDA;
+        together ~0.2 s on an H100). The scratch page is gathered and
+        written back to itself - its contents are garbage by contract."""
+        idx = torch.tensor([SCRATCH_PAGE], dtype=torch.int64,
+                           device=self.device)
+        for leaf in self.pool.values():
+            leaf.index_copy_(1, idx, leaf.transpose(0, 1).index_select(
+                0, idx).transpose(0, 1))
+        torch.cuda.synchronize(self.device)
+
+    def residency(self, rid: int) -> list[str]:
+        """Per-table-entry residency of `rid`: "device", "host", or
+        "in_flight"."""
+        out = []
+        for e in self.tables[rid]:
+            if isinstance(e, HostPageRef):
+                out.append("host")
+            elif e in self._inflight:
+                out.append("in_flight")
+            else:
+                out.append("device")
+        return out
+
+    def swap_eligible_pages(self, rid: int) -> list[int]:
+        """Device pages of `rid` that swap-out would move: exactly the
+        exclusively held ones (refcount 1). Shared pages - radix-tree or
+        sibling references - keep the victim's reference and stay on the
+        device, so a shared page swaps at most once and a COW source is
+        never host-resident."""
+        alloc = self.allocator
+        return [p for p in self.tables[rid]
+                if isinstance(p, int) and alloc.refcount(p) == 1]
+
+    def _side_stream(self):
+        if self.device.type != "cuda":
+            return None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def _events(self):
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def settle(self):
+        """Wait for every swap copy in flight and drop what it held."""
+        for event, _ in self._staged:
+            event.synchronize()
+        self._staged.clear()
+        if self.host_pool is not None:
+            self.host_pool.settle()
+
+    def swap_out(self, rid: int) -> tuple[int, int]:
+        """Move `rid`'s exclusively held pages to the host tier; returns
+        `(pages_moved, bytes_moved)`.
+
+        One gather per leaf on the compute stream, then the copy to the
+        host slots (on the side stream, behind an event, on the card); the
+        table entries become `HostPageRef`s in place and the device copies
+        are dereffed - dropping the sole reference, so they scrub and
+        return to the allocator. Host slots are claimed *before* the
+        transfer (`MemoryError` on a full tier mutates nothing)."""
+        if self.host_pool is None:
+            raise RuntimeError("no host swap pool attached")
+        table = self.tables[rid]
+        moved = [(i, p) for i, p in enumerate(table)
+                 if isinstance(p, int) and self.allocator.refcount(p) == 1]
+        if not moved:
+            return 0, 0
+        self._no_capture("swap_out")
+        pages = [p for _, p in moved]
+        slots = self.host_pool.take(len(pages))
+        self._inflight.update(pages)
+        kops._record_dispatch("swap_out", kops.kernels_enabled())
+        self._copy_out(rid, pages, slots)
+        self._inflight.difference_update(pages)
+        for (i, _), s in zip(moved, slots):
+            table[i] = HostPageRef(s)
+        self.deref(pages)
+        self.pages_swapped_out += len(pages)
+        return len(pages), len(pages) * self.page_bytes
+
+    def _copy_out(self, rid: int, pages: list[int], slots: list[int]):
+        self._staged = [(e, t) for e, t in self._staged if not _done(e)]
+        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        # [n, n_layers, page_size, ...] per leaf: the slot-major layout
+        staging = {name: leaf.transpose(0, 1).index_select(0, idx)
+                   for name, leaf in self.pool.items()}
+        side = self._side_stream()
+        if side is None:
+            for name, block in staging.items():
+                for a, s, n in _runs(slots):
+                    self.host_pool.buf[name][s:s + n].copy_(block[a:a + n])
+            return
+        gathered = torch.cuda.Event()
+        gathered.record(torch.cuda.current_stream(self.device))
+        side.wait_event(gathered)
+        start, end = self._events()
+        with torch.cuda.stream(side):
+            start.record(side)
+            for name, block in staging.items():
+                host = self.host_pool.buf[name]
+                for a, s, n in _runs(slots):
+                    host[s:s + n].copy_(block[a:a + n], non_blocking=True)
+            end.record(side)
+        self._staged.append((end, staging))
+        self._out_events[rid] = end
+        self.last_transfer = (start, end)
+
+    def swap_in(self, rid: int,
+                alloc_fn: Callable[[int], list[int]] | None = None
+                ) -> tuple[int, int]:
+        """Restore `rid`'s host-resident pages to the device tier; returns
+        `(pages_moved, bytes_moved)`.
+
+        Fresh device pages are allocated first - through `alloc_fn` when
+        the caller has a smarter allocator (the scheduler's tree-evicting
+        one) - so a `MemoryError` leaves table, host tier and allocator
+        untouched. The copy into a staging tensor (on the side stream, on
+        the card) and one scatter per leaf write the blocks back, the
+        block-table row is patched in place (the pages hold the rows they
+        held before swap-out), and the host slots are freed once the copy
+        has read them."""
+        table = self.tables[rid]
+        refs = [(i, e) for i, e in enumerate(table)
+                if isinstance(e, HostPageRef)]
+        if not refs:
+            return 0, 0
+        self._no_capture("swap_in")
+        slots = [e.slot for _, e in refs]
+        new_pages = (alloc_fn or self.allocator.alloc)(len(refs))
+        self._inflight.update(new_pages)
+        kops._record_dispatch("swap_in", kops.kernels_enabled())
+        done = self._copy_in(rid, slots, new_pages)
+        self._inflight.difference_update(new_pages)
+        for (i, _), p in zip(refs, new_pages):
+            table[i] = p
+        self._out_events.pop(rid, None)
+        self.host_pool.release(slots, after=done)
+        self.pages_swapped_in += len(refs)
+        return len(refs), len(refs) * self.page_bytes
+
+    def _copy_in(self, rid: int, slots: list[int], pages: list[int]):
+        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        host = self.host_pool.buf
+        side = self._side_stream()
+        if side is None:
+            for name, leaf in self.pool.items():
+                block = torch.cat([host[name][s:s + n]
+                                   for _, s, n in _runs(slots)])
+                leaf.index_copy_(1, idx, block.transpose(0, 1))
+            return None
+        out_event = self._out_events.get(rid)
+        if out_event is not None:
+            side.wait_event(out_event)      # the copy into the slots landed
+        start, end = self._events()
+        with torch.cuda.stream(side):
+            start.record(side)
+            staging = {}
+            for name, buf in host.items():
+                block = torch.empty((len(slots),) + tuple(buf.shape[1:]),
+                                    dtype=buf.dtype, device=self.device)
+                for a, s, n in _runs(slots):
+                    block[a:a + n].copy_(buf[s:s + n], non_blocking=True)
+                staging[name] = block
+            end.record(side)
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(end)
+        for name, leaf in self.pool.items():
+            leaf.index_copy_(1, idx, staging[name].transpose(0, 1))
+            # made on the side stream, read on the compute stream: its
+            # memory is reused only after the scatter
+            staging[name].record_stream(compute)
+        self.last_transfer = (start, end)
+        return end
 
     def page_of(self, rid: int, position: int) -> tuple[int, int]:
         """(page id, in-page offset) holding `position` of sequence `rid`."""

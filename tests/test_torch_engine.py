@@ -11,8 +11,9 @@ from repro_torch.core.synthetic import inject_outlier_channels
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.serve import init_dense_params
 from repro_torch.serve.engine import (SCRATCH_PAGE, EngineRequest,
-                                      IntegerModelAdapter, PageAllocator,
-                                      PagedKVCache, SamplingParams,
+                                      FaultPlan, IntegerModelAdapter,
+                                      PageAllocator, PagedKVCache,
+                                      RadixCache, SamplingParams,
                                       ServeEngine, as_servable,
                                       derive_state_spec, pages_for)
 from repro_torch.serve.engine import scheduler as sched
@@ -248,18 +249,37 @@ def test_submit_validation_and_unported_options(served):
     _, small = make_engine(served, n_pages=3, max_context=64)
     with pytest.raises(ValueError, match="pool capacity"):
         small.submit(EngineRequest(rid=1, prompt=[1] * 20, sampling=ok))
-    for kw, queue in ((dict(admission="optimistic"), "A5"),
-                      (dict(prefix_cache=True), "A5"),
-                      (dict(swap_host_mb=1.0), "A5"),
-                      (dict(faults=object()), "A5")):
-        with pytest.raises(NotImplementedError, match=queue):
+    # the options that were refused before the robustness slice: the
+    # reference's defaults and lifecycle API
+    assert engine.admission == "optimistic"      # the reference's default
+    _, tight = make_engine(served, n_pages=3, headroom_pages=1)
+    with pytest.raises(ValueError, match="headroom"):
+        tight.submit(EngineRequest(rid=2, prompt=[1] * 9, sampling=ok))
+    _, opts = make_engine(served, prefix_cache=True, prefix_cache_pages=3,
+                          swap_host_mb=1.0, faults=FaultPlan(seed=1),
+                          deadline_s=60.0)
+    assert isinstance(opts.prefix_cache, RadixCache)
+    assert opts.prefix_cache.max_pages == 3
+    assert opts.kv.host_pool.capacity == 2 ** 20 // opts.kv.page_bytes
+    assert opts.swap_policy == "cost"
+    assert opts.kv.host_pool.in_use == 0
+    _, never = make_engine(served, swap_host_mb=1.0, swap_policy="never")
+    assert never.kv.host_pool is None and never.swap_policy == "never"
+    for kw in (dict(admission="greedy"), dict(swap_policy="sometimes")):
+        with pytest.raises(ValueError):
             make_engine(served, **kw)
-    with pytest.raises(ValueError):
-        make_engine(served, admission="greedy")
-    with pytest.raises(NotImplementedError):
+    streamed = []
+    opts.submit(EngineRequest(rid=5, prompt=[3, 4, 5], sampling=ok),
+                on_token=lambda rid, tok: streamed.append((rid, tok)))
+    assert opts.queue[0].deadline_s == 60.0      # the engine's default TTL
+    assert engine.cancel(0).outcome == "cancelled"
+    with pytest.raises(ValueError, match="not queued or active"):
         engine.cancel(0)
-    with pytest.raises(NotImplementedError):
-        engine.drain()
+    done = opts.drain()
+    assert [r.outcome for r in done] == ["cancelled"]    # never admitted
+    assert not streamed
+    with pytest.raises(RuntimeError, match="draining"):
+        opts.submit(EngineRequest(rid=6, prompt=[1], sampling=ok))
 
 
 def test_reserve_admission_blocks_until_pages_free(served):
@@ -267,7 +287,8 @@ def test_reserve_admission_blocks_until_pages_free(served):
     the third waits in the queue although a slot is free, and is served
     after a release."""
     cfg, _ = served
-    _, engine = make_engine(served, n_pages=2 * 2 + 1)   # 4 pages of 8 rows
+    _, engine = make_engine(served, n_pages=2 * 2 + 1,    # 4 pages of 8 rows
+                            admission="reserve")
     for rid in range(3):
         engine.submit(EngineRequest(rid=rid, prompt=[5 + rid] * 9,
                                     sampling=SamplingParams(max_new=4)))

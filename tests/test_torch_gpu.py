@@ -796,3 +796,145 @@ def test_forced_capture_error_raises(served_gpu):
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "raised:" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# Engine robustness on the card: the swap tier, preemption, COW, captures
+# ---------------------------------------------------------------------------
+
+def _card_pool(dev, n_pages=40, page=16, layers=4):
+    """A page pool in the int4 page format's leaves, random contents."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    codes = (layers, n_pages, page, 8, 64)
+    aux = (layers, n_pages, page, 8, 1)
+    return {"k": torch.randint(-8, 8, codes, generator=gen, device=dev,
+                               dtype=torch.int8),
+            "v": torch.randint(-8, 8, codes, generator=gen, device=dev,
+                               dtype=torch.int8),
+            "k_scale": torch.rand(aux, generator=gen, device=dev),
+            "v_zero": torch.rand(aux, generator=gen, device=dev)}
+
+
+def test_swap_round_trip_survives_page_reuse(dev):
+    """Swap-out, then the victim's freed pages reallocated and written by
+    another sequence at once (no synchronise in between), then swap-in:
+    the victim's bytes come back equal. The host tier is pinned memory and
+    both copies ran on the side stream, ordered by events."""
+    from repro_torch.serve.engine import PagedKVCache
+    kv = PagedKVCache(_card_pool(dev), 40, 16)
+    host = kv.attach_host_pool(64)
+    assert all(b.is_pinned() for b in host.buf.values())
+    kv.open(0)
+    kv.ensure(0, 16 * 12)
+    before = {k: leaf[:, kv.tables[0]].clone() for k, leaf in kv.pool.items()}
+    freed = list(kv.tables[0])
+    n, _ = kv.swap_out(0)
+    assert n == 12 and kv._stream is not None
+    kv.open(1)
+    kv.ensure(1, 16 * 12)
+    assert sorted(kv.tables[1]) == sorted(freed)      # the same pages, reused
+    for leaf in kv.pool.values():
+        leaf[:, kv.tables[1]] = 5
+    kv.swap_in(0)
+    torch.cuda.synchronize()
+    for k, leaf in kv.pool.items():
+        assert torch.equal(leaf[:, kv.tables[0]], before[k])
+        assert bool((leaf[:, kv.tables[1]] == 5).all())
+    start, end = kv.last_transfer
+    assert start.elapsed_time(end) >= 0.0
+    kv.release(0)
+    kv.release(1)
+    kv.settle()
+    assert host.in_use == 0 and kv.allocator.in_use == 0
+
+
+def _robust_requests(cfg):
+    rng = np.random.default_rng(8)
+    shared = rng.integers(0, cfg.vocab, 10).tolist()
+    return [shared + rng.integers(0, cfg.vocab, n).tolist()
+            for n in (3, 9, 5, 2, 7)]
+
+
+def _serve_robust(served, eager, **kw):
+    """Five requests with a shared 10-token prefix over 2 slots, pages of 4
+    rows, the prefix cache on and injected exhaustions, with every pool
+    write's capture state recorded. -> (engine, requests, tallies, log)."""
+    from repro_torch.serve.engine import FaultPlan
+    cfg, packed = served
+    qlm = QuantizedDenseLM(cfg, block_size=16, kv_bits=4)
+    engine = ServeEngine(as_servable(qlm, packed), n_pages=40, page_size=4,
+                         max_seqs=2, prefill_chunk=8, seed=2,
+                         record_logits=True, eager=eager, prefix_cache=True,
+                         max_preemptions=10,
+                         faults=FaultPlan(exhaust_steps=(5, 9, 14, 20)), **kw)
+    writes = []
+    for name in ("scrub", "cow_copy", "swap_out", "swap_in"):
+        fn = getattr(engine.kv, name)
+
+        def logged(*a, _fn=fn, _name=name, **k):
+            writes.append((_name, torch.cuda.is_current_stream_capturing()))
+            return _fn(*a, **k)
+        setattr(engine.kv, name, logged)
+    for rid, p in enumerate(_robust_requests(cfg)):
+        engine.submit(EngineRequest(rid=rid, prompt=p, sampling=SamplingParams(
+            max_new=12, temperature=0.7 if rid == 3 else 0.0)))
+    kops.reset_kernel_launch_counts()
+    kops.reset_dispatch_counts()
+    done = []
+    while engine.queue or engine.active:
+        done.extend(engine.step())
+        engine.check_books()
+    torch.cuda.synchronize()
+    return engine, {r.rid: r for r in done}, kops.count_snapshot(), writes
+
+
+def test_preemption_and_cow_between_replays_match_eager(served_gpu):
+    """Preemptions and COW copies land between replays of the same captured
+    variants: tokens, every step's logits and the tallies equal those of
+    the eager engine, bit for bit."""
+    eager, want, want_counts, _ = _serve_robust(served_gpu, eager=True)
+    graphed, got, got_counts, _ = _serve_robust(served_gpu, eager=False)
+    assert sorted(got) == sorted(want) == list(range(5))
+    for rid, r in want.items():
+        assert r.outcome == got[rid].outcome == "length"
+        assert got[rid].generated == r.generated
+        for g, w in zip(got[rid].step_logits, r.step_logits):
+            assert np.array_equal(g, w)
+    assert got_counts == want_counts
+    c = graphed.metrics.counter
+    assert c("engine.preemptions").value >= 1
+    assert c("engine.prefix.cow_copies").value >= 1
+    assert c("engine.prefix.hits").value >= 1
+    decodes = graphed.metrics.histogram("engine.decode.batch_occupancy").count
+    assert 1 <= graphed.graph_stats()["graphs"] < decodes     # replays ran
+
+
+def test_no_pool_write_inside_a_capture(served_gpu, dev):
+    """Scrub, COW and the swap transfers of a graphed run with preemption,
+    the prefix cache and the swap tier all run outside any capture; called
+    inside one, a pool write raises before touching the device."""
+    from repro_torch.serve.engine import PagedKVCache
+    engine, done, _, writes = _serve_robust(served_gpu, eager=False,
+                                            swap_host_mb=8,
+                                            swap_policy="always")
+    assert all(r.outcome == "length" for r in done.values())
+    assert {name for name, _ in writes} >= {"scrub", "cow_copy", "swap_out",
+                                            "swap_in"}
+    assert not any(capturing for _, capturing in writes)
+    assert engine.graph_stats()["graphs"] >= 1
+    kv = PagedKVCache(_card_pool(dev, n_pages=8, layers=1), 8, 16)
+    kv.open(0)
+    kv.ensure(0, 32)
+    src, dst = kv.tables[0]
+    x = torch.zeros(4, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x.add_(1)
+        with pytest.raises(RuntimeError, match="captured"):
+            kv.cow_copy(src, dst)
+        with pytest.raises(RuntimeError, match="captured"):
+            kv.release(0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float(x.sum()) == 4.0

@@ -63,15 +63,72 @@ def test_launcher_is_seeded(capsys):
     ([], "A8/A9"),                                   # fake-quant default
     (["--integer-path", "--legacy-scheduler"], "A8"),
     (["--integer-path", "--preset", "perq_star"], "A9"),
-    (["--integer-path", "--prefix-cache"], "A5"),
-    (["--integer-path", "--swap-host-mb", "4"], "A5"),
-    (["--integer-path", "--drain-after", "3"], "A5"),
-    (["--integer-path", "--admission", "optimistic"], "A5"),
 ])
 def test_launcher_names_the_queue_item_of_what_it_does_not_serve(extra, queue):
     with pytest.raises(SystemExit) as e:
         cli.main(["--arch", "llama3-1b", "--reduced", "--device", "cpu"] + extra)
     assert "not ported yet" in str(e.value) and f"Queue {queue}" in str(e.value)
+
+
+ROBUST_ARGV = ["--arch", "llama3-1b", "--reduced", "--integer-path",
+               "--device", "cpu", "--layers", "1", "--block-size", "16",
+               "--requests", "4", "--max-new", "4", "--slots", "2",
+               "--prompt-len", "5-12", "--prefill-chunk", "8",
+               "--page-size", "4", "--kv-bits", "4"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--prefix-cache", "--shared-prefix", "9"],
+    ["--swap-host-mb", "4", "--swap-policy", "always"],
+    ["--drain-after", "3"],
+    ["--admission", "optimistic", "--deadline-s", "600"],
+])
+def test_launcher_serves_the_robustness_options_on_the_cpu(extra, capsys):
+    """The options the JAX launcher has for the engine's robustness serve
+    on the CPU: the default admission is optimistic and gives the tokens a
+    reserve run gives on the launcher's worst-case pool; the prefix cache
+    hits on a shared system prompt; the swap tier is attached (and, the
+    pool being worst-case sized, never needed); a drain after 3 steps
+    finishes what was admitted, cancels the rest and leaves both tiers
+    empty."""
+    prompts = extra[extra.index("--shared-prefix"):][:2] \
+        if "--shared-prefix" in extra else []
+    reserve = cli.main(ROBUST_ARGV + prompts + ["--admission", "reserve"])
+    result = cli.main(ROBUST_ARGV + extra)
+    out = capsys.readouterr().out
+    engine, snap, done = result["engine"], result["snapshot"], result["done"]
+    assert engine.admission == ("reserve" if "reserve" in extra
+                                else "optimistic")
+    assert reserve["engine"].admission == "reserve"
+    want = {r.rid: r.generated for r in reserve["done"]}
+    assert sorted(r.rid for r in done) == [0, 1, 2, 3]
+    assert "served 4 requests" in out and "summary:" in out
+    alloc = engine.kv.allocator
+    tree = engine.prefix_cache
+    assert alloc.in_use == (tree.n_pages if tree is not None else 0)
+    assert snap["counters"]["engine.preemptions"] == 0
+    for r in done:
+        if r.outcome == "length":
+            assert r.generated == want[r.rid]
+        else:
+            assert "--drain-after" in extra
+            assert r.outcome == "cancelled" and not r.generated
+    if "--prefix-cache" in extra:
+        assert snap["counters"]["engine.prefix.hits"] > 0
+        assert "prefix hit-rate" in out
+        assert snap["counters"]["engine.prefill_tokens"] < \
+            reserve["snapshot"]["counters"]["engine.prefill_tokens"]
+    if "--swap-host-mb" in extra:
+        assert engine.kv.host_pool.capacity == \
+            4 * 2 ** 20 // engine.kv.page_bytes
+        assert snap["gauges"]["engine.swap.host_pages"] == 0
+    if "--drain-after" in extra:
+        assert engine._draining and alloc.in_use == 0
+        assert snap["counters"]["engine.requests.cancelled"] >= 1
+        assert engine.kv.host_pool is None
+    if "--deadline-s" in extra:
+        assert all(r.deadline_s == 600.0 for r in done)
+        assert all(r.outcome == "length" for r in done)
 
 
 def test_launcher_wants_a_card_unless_told_otherwise():

@@ -360,7 +360,11 @@ def test_engine_snapshot_passes_the_reference_validator(served):
     snap = eng.metrics_snapshot()
     both_validate_snapshot(snap)
     tallies = [k for k in snap["counters"] if k.startswith("kernels.")]
-    assert tallies and all(k.endswith(".ref") for k in tallies)
+    # the kernel entries ran their plain versions on the CPU; the page
+    # scrub carries the reference's path tag, kernels_enabled()
+    kernel = [k for k in tallies if ".scrub_state." not in k]
+    assert kernel and all(k.endswith(".ref") for k in kernel)
+    assert snap["counters"]["kernels.dispatch.scrub_state.kernels"] > 0
     assert snap["counters"]["kernels.dispatch.int4_matmul.ref"] > 0
     for name in ("engine.preemptions", "engine.prefix.hits",
                  "engine.swap.out", "engine.requests.cancelled"):
