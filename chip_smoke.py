@@ -5,13 +5,15 @@
 
 Builds the CUDA kernels from `src/repro_torch/kernels/csrc/`, holds each
 against its plain PyTorch version on the card at the serving path's
-full-width shapes, serves llama3-1b (16 layers, seeded random weights)
-through `repro_torch.launch.serve` with true-integer W4A4 arithmetic and an
-int4 KV page pool - once plain, once observed (`--probe-every 4 --trace
---metrics-json`, which runs `block_hadamard` in the rotation-quality probe),
-each decode step one replay of a captured CUDA graph - and checks the
-kernels' logits against the plain versions' on the same state and the
-graphed decode against the eager one. Phases print one JSON line each:
+full-width shapes, serves llama3-1b (16 layers, seeded random weights,
+`rtn_only` through the PTQ pipeline) through `repro_torch.launch.serve`
+with true-integer W4A4 arithmetic and an int4 KV page pool - once plain,
+once observed (`--probe-every 4 --trace --metrics-json`, which runs
+`block_hadamard` in the rotation-quality probe), each decode step one
+replay of a captured CUDA graph - checks the kernels' logits against the
+plain versions' on the same state and the graphed decode against the eager
+one, then runs the paper's PTQ pipeline on the card and serves its results
+on all three paths. Phases print one JSON line each:
 
     device   card name and power limit (nvidia-smi)
     build    seconds nvcc took
@@ -34,6 +36,19 @@ graphed decode against the eager one. Phases print one JSON line each:
              seeded fault plan ending in drain(), and one launcher run with
              the prefix cache, the swap tier and --drain-after; books every
              step, tiers empty at the end, tokens against the baseline
+    ptq      `quantize_model` at llama3-1b's full width and depth (one
+             [4, 128] calibration batch, as the launcher): rtn_only,
+             perq_star with and without MassDiff, quarot and the RTN gate
+             pair (MassDiff against identity), then the three Qronos runs
+             again on 8 batches; per run seconds, peak device
+             memory, per-layer max block l1 and the fake-quant logit MSE
+             against the bf16 model on a held-out [2, 64] batch, and the
+             share of the rtn_only-to-quarot gap recovered; the Model's
+             paged path (f32 pages) against its plain version and
+             Model.forward in bf16 and f32; then the launcher: perq_star on
+             the integer path (int4 pages, 16 layers), --no-quant (16
+             layers), the fake-quant default (4 layers), each decode
+             graphed, and --legacy-scheduler (2 layers)
     profile  (only with --profile) where a pure decode step's time goes,
              eager and graphed, without and with the probe
     ptxas    (only with --ptxas) registers, spills and shared memory of
@@ -58,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -314,9 +330,10 @@ def make_pool(rng, n_layers, n_pages, t, kh, dh, fmt):
     """A seeded page pool stack [n_layers, n_pages, T, KH, Dh] in one of the
     three page formats, as a kv dict."""
     shp = (n_layers, n_pages, t, kh, dh)
-    if fmt == "bf16":
-        return {"k": torch.from_numpy(rng.standard_normal(shp).astype(np.float32)).to(DEV).to(torch.bfloat16),
-                "v": torch.from_numpy(rng.standard_normal(shp).astype(np.float32)).to(DEV).to(torch.bfloat16)}
+    if fmt in ("bf16", "f32"):
+        dt = torch.bfloat16 if fmt == "bf16" else torch.float32
+        return {"k": torch.from_numpy(rng.standard_normal(shp).astype(np.float32)).to(DEV).to(dt),
+                "v": torch.from_numpy(rng.standard_normal(shp).astype(np.float32)).to(DEV).to(dt)}
     bits = 8 if fmt == "int8" else 4
     off = 2 ** (bits - 1)
     kv = {}
@@ -345,7 +362,7 @@ def check_attention(rng, label, fmt, b, s, lens, n_cols, theta, kv_splits=None,
     used = [-(-ln // t) for ln in lens]
     n_pages = 1 + (sum(used) if live_pool else b * n_cols)
     pool = make_pool(rng, n_layers, n_pages, t, kh, dh, fmt)
-    bits = {"bf16": None, "int8": 8, "int4": 4}[fmt]
+    bits = {"bf16": None, "f32": None, "int8": 8, "int4": 4}[fmt]
     q = torch.from_numpy(rng.standard_normal((b, s, h, dh)).astype(np.float32)).to(DEV)
     q = q.to(torch.bfloat16)
     perm = rng.permutation(np.arange(1, n_pages))
@@ -391,13 +408,14 @@ def check_attention(rng, label, fmt, b, s, lens, n_cols, theta, kv_splits=None,
     pms = time_ms([lambda l=l: PA.paged_attention_plain(q, layer(l), bt, qpos, lens_t, **kw)
                    for l in range(2)], 4, warmup=1)
     lib = None
-    if fmt == "bf16":
-        # yardstick: SDPA on a slab gathered beforehand (the gather is not timed)
+    if not bits:
+        # yardstick: SDPA on a slab gathered beforehand (the gather is not
+        # timed), in the pages' dtype
         kk = pool["k"][0][bt.long()].reshape(b, n_cols * t, kh, dh)
         vv = pool["v"][0][bt.long()].reshape(b, n_cols * t, kh, dh)
         kk = kk.repeat_interleave(h // kh, dim=2).transpose(1, 2)
         vv = vv.repeat_interleave(h // kh, dim=2).transpose(1, 2)
-        qq = q.transpose(1, 2)
+        qq = q.to(kk.dtype).transpose(1, 2)
         mask = (torch.arange(n_cols * t, device=DEV)[None, None, None, :]
                 <= qpos[:, None, :, None])
         lib = device_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -529,10 +547,11 @@ def phase_kernels():
             cases["int4_matmul"].append(check_int4_matmul(rng, m, k, n))
     cases["int4_matmul"].append(check_int4_matmul(rng, 5, 250, 514))  # ragged
     theta = 500000.0
-    for fmt in ("int4", "int8", "bf16"):
+    # f32 pages, no in-walk rotation: the bf16 / fake-quant Model's path
+    for fmt in ("int4", "int8", "bf16", "f32"):
         cases["paged_attention"].append(check_attention(
             rng, "decode", fmt, 4, 1, [120, 0, 37, 113], 8, theta))
-    for fmt in ("int4", "int8", "bf16"):
+    for fmt in ("int4", "int8", "bf16", "f32"):
         cases["paged_attention"].append(check_attention(
             rng, "prefill", fmt, 1, 32, [128], 8, theta))
     # the serve path's own shapes: a 32-token prefill chunk of 4 sequences
@@ -725,9 +744,13 @@ def sweep_hadamard_quant():
 # phase: serve
 # ---------------------------------------------------------------------------
 
-SERVE_ARGS = ["--arch", "llama3-1b", "--integer-path", "--block-size", "16",
-              "--slots", "4", "--page-size", "16", "--prefill-chunk", "32",
-              "--max-len", "512", "--device", "cuda"]
+# the engine's shape of every launcher run; SERVE_ARGS packs `rtn_only`
+# through the PTQ pipeline (folded norms, MSE-searched scales) for the
+# integer path, as the reference's launcher does
+ENGINE_ARGS = ["--arch", "llama3-1b", "--block-size", "16", "--slots", "4",
+               "--page-size", "16", "--prefill-chunk", "32", "--max-len", "512",
+               "--device", "cuda"]
+SERVE_ARGS = ENGINE_ARGS + ["--integer-path", "--preset", "rtn_only"]
 # the kernels every serve run launches; block_hadamard runs only in the
 # rotation-quality probe (--probe-every)
 MAIN_PATH_KERNELS = ("hadamard_quant", "int4_matmul", "paged_attention",
@@ -735,9 +758,11 @@ MAIN_PATH_KERNELS = ("hadamard_quant", "int4_matmul", "paged_attention",
 PROBE_EVERY = 4
 
 
-def run_launcher(label, extra, expect=MAIN_PATH_KERNELS, drained=False):
-    """One launcher run with every count set to 0 just before and read just
-    after; every kernel in `expect` must have launched. Every request ends
+def run_launcher(label, extra, expect=MAIN_PATH_KERNELS, drained=False,
+                 base=SERVE_ARGS):
+    """One launcher run (`base + extra`) with every count set to 0 just
+    before and read just after; every kernel in `expect` must have
+    launched, and decode must have been graphed. Every request ends
     `length` - or, with `drained` (`--drain-after`), `cancelled` with no
     token when the drain found it never admitted. Returns (the launcher's
     result, record)."""
@@ -747,14 +772,15 @@ def run_launcher(label, extra, expect=MAIN_PATH_KERNELS, drained=False):
     kops.reset_dispatch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        result = serve_cli.main(SERVE_ARGS + extra)
+        result = serve_cli.main(base + extra)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kops.kernel_launch_counts()
     plain = {f"{e}": n for (e, path), n in kops.dispatch_counts().items()
              if path == "ref"}
     lines = [ln for ln in buf.getvalue().splitlines()
-             if "served" in ln or ln.startswith(("summary:", "quality:"))]
+             if "served" in ln or ln.startswith(("quantized", "summary:",
+                                                 "quality:"))]
     done, engine, snap = result["done"], result["engine"], result["snapshot"]
     alloc = engine.kv.allocator
     steps = snap["counters"]["engine.steps"]
@@ -769,7 +795,7 @@ def run_launcher(label, extra, expect=MAIN_PATH_KERNELS, drained=False):
         "ms_per_engine_step": 1e3 * step_s / max(steps, 1),
         "wall_s_with_setup": wall, "kernel_launches": launches,
         "plain_dispatches": plain, "pages_in_use_at_end": alloc.in_use,
-        "launcher_lines": lines,
+        "launcher_lines": lines, "graphs": engine.graph_stats()["graphs"],
         "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
     problems = []
@@ -789,6 +815,8 @@ def run_launcher(label, extra, expect=MAIN_PATH_KERNELS, drained=False):
             problems.append(f"kernel {name} was never launched")
     if plain:
         problems.append(f"plain versions ran on the main path: {plain}")
+    if rec["graphs"] < 1:
+        problems.append("no decode step was captured in a graph")
     for r in done:
         if r.outcome == "cancelled":
             continue
@@ -1522,6 +1550,235 @@ def phase_profile(adapter):
 
 
 # ---------------------------------------------------------------------------
+# phase: ptq
+# ---------------------------------------------------------------------------
+
+# (label, preset or None for a bare PTQConfig, overrides, calibration
+# batches of [4, 128]); b = 16 for all. One batch is the launcher's
+# calibration; 8 batches (4096 tokens, still fewer than w_down's 8192
+# inputs) show how the error-diffusing presets move with more of it.
+PTQ_RUNS = (
+    ("rtn_only", "rtn_only", {}, 1),
+    ("perq_star", "perq_star", {}, 1),
+    ("perq_star, identity P3", "perq_star", {"permutation": "identity"}, 1),
+    ("quarot (full-vector R3)", "quarot", {}, 1),
+    ("gate: quarot R1/R2 + block R3 + RTN, massdiff P3", None,
+     {"permutation": "massdiff", "rotation": "quarot", "rounding": "rtn"}, 1),
+    ("gate: quarot R1/R2 + block R3 + RTN, identity P3", None,
+     {"permutation": "identity", "rotation": "quarot", "rounding": "rtn"}, 1),
+    ("perq_star, 8 batches", "perq_star", {}, 8),
+    ("perq_star, identity P3, 8 batches", "perq_star",
+     {"permutation": "identity"}, 8),
+    ("quarot (full-vector R3), 8 batches", "quarot", {}, 8),
+)
+# The Model's paged forward_chunk on f32 pages, kernel against plain (each
+# step from the same pool) and against Model.forward over the whole
+# sequence. In f32 the 16 layers carry the attention's roundoff (the kernel
+# sums in another order) to ~1e-4 of max|logit| (measured, H100): bound
+# 5e-4. In bf16 every activation is rounded to 8 bits and the random,
+# outlier-injected model amplifies one rounding step layer by layer: the
+# plain version itself lies ~0.17 of max|logit| from Model.forward at 16
+# layers (measured, H100), so the served bf16 model is held to being no
+# further from Model.forward than 1.5x the plain version is.
+MODEL_F32_FRAC = 5e-4
+MODEL_BF16_RATIO = 1.5
+
+
+def to_f32(tree):
+    """A parameter tree's f32 copy."""
+    return {k: to_f32(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def check_model_paged(model, params, vocab):
+    """A 32-token and a 15-token prefill chunk, then one per-slot decode
+    step, 2 sequences over 16-row f32 pages: the kernels' logits against
+    the plain versions' from the same pool at every step, and against
+    Model.forward; the plain versions' against Model.forward too."""
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, vocab, (2, 48))).to(DEV)
+    bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32,
+                      device=DEV)
+    pool = model.init_paged_state(9, 16, 0, dtype=torch.float32,
+                                  device=DEV)["kv"]
+    plain_pool = {k: v.clone() for k, v in pool.items()}
+    steps = ((0, 32, 0), (32, 47, 32),
+             (47, 48, torch.tensor([47, 47], dtype=torch.int32, device=DEV)))
+    kops.reset_kernel_launch_counts()
+    got, plain_run, errs = [], [], []
+    for start, stop, index in steps:
+        chunk = toks[:, start:stop]
+        lens = torch.full((2,), stop, dtype=torch.int32, device=DEV)
+        twin = {k: v.clone() for k, v in pool.items()}
+        with kops.use_kernels(False):
+            plain, _ = model.forward_chunk(params, chunk, twin, index, bt, lens)
+            alone, _ = model.forward_chunk(params, chunk, plain_pool, index,
+                                           bt, lens)
+        logits, _ = model.forward_chunk(params, chunk, pool, index, bt, lens)
+        logits, plain = logits.float(), plain.float()
+        errs.append(float((logits - plain).abs().max() / plain.abs().max()))
+        got.append(logits)
+        plain_run.append(alone.float())
+    launches = kops.kernel_launch_counts()["paged_attention"]
+    want = model.forward(params, {"tokens": toks}).float()
+    got, plain_run = torch.cat(got, dim=1), torch.cat(plain_run, dim=1)
+    top = want.abs().max()
+    return {"dtype": str(model.pdt).split(".")[-1],
+            "steps": ["prefill 0-32", "prefill 32-47", "decode 47"],
+            "kernel_vs_plain_same_pool_of_max_logit": errs,
+            "kernel_vs_forward_of_max_logit": float((got - want).abs().max() / top),
+            "plain_vs_forward_of_max_logit": float(
+                (plain_run - want).abs().max() / top),
+            "argmax_agree_kernel_vs_forward": float(
+                (got.argmax(-1) == want.argmax(-1)).float().mean()),
+            "attention_launches": launches,
+            "launches_ok": launches == 3 * model.cfg.n_layers,
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def run_legacy(extra):
+    """The launcher's --legacy-scheduler run: every request gets its tokens
+    (no kernel: the dense slot cache is plain PyTorch)."""
+    from repro_torch.launch import serve as serve_cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = serve_cli.main(ENGINE_ARGS + extra)
+    torch.cuda.synchronize()
+    done = result["done"]
+    vocab = result["scheduler"].model.cfg.vocab
+    n = int(extra[extra.index("--requests") + 1])
+    new = int(extra[extra.index("--max-new") + 1])
+    ok = len(done) == n and all(
+        len(r.generated) == new and all(0 <= t < vocab for t in r.generated)
+        for r in done)
+    return {"label": "bf16, --legacy-scheduler, 2 layers", "args": extra,
+            "requests": len(done), "wall_s_with_setup":
+            time.perf_counter() - t0, "ok": ok,
+            "launcher_lines": [ln for ln in buf.getvalue().splitlines()
+                               if "served" in ln]}
+
+
+def phase_ptq():
+    """The paper's PTQ pipeline on the card at llama3-1b's published widths
+    and depth, then the launcher's three serving paths over its results."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import pipeline as PL
+    from repro_torch.core.synthetic import inject_outlier_channels
+    from repro_torch.models.transformer import build_model
+    cfg = get_config("llama3-1b")
+    model = build_model(cfg)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = inject_outlier_channels(model.init(gen))
+    # the launcher's calibration batch for --seed 0 first, and a held-out
+    # batch
+    crng = np.random.default_rng(1)
+    calib = [{"tokens": torch.from_numpy(
+        crng.integers(0, cfg.vocab, (4, 128))).to(DEV)} for _ in range(8)]
+    held = {"tokens": torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 64))).to(DEV)}
+    want = model.forward(params, held).float()
+    runs, problems = [], []
+    for label, name, over, n_batches in PTQ_RUNS:
+        ptq = PL.preset(name, block_size=16, **over) if name \
+            else PL.PTQConfig(block_size=16, **over)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = PL.quantize_model(model, params, calib[:n_batches], ptq)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = PL.build_quantized_model(model, res).forward(res.params,
+                                                           held).float()
+        rec = {"label": label, "preset": name, "calibration_tokens":
+               512 * n_batches,
+               "config": {k: getattr(ptq, k) for k in (
+                   "permutation", "rotation", "rounding", "block_size",
+                   "full_vector_r3")},
+               "seconds": secs, "peak_device_memory_gib": peak,
+               "logit_mse": float(((got - want) ** 2).mean()),
+               "finite": bool(torch.isfinite(got).all()),
+               "per_layer": res.report["per_layer"]}
+        if not rec["finite"]:
+            problems.append(f"{label}: a logit is not finite")
+        if ptq.permutation == "massdiff" and not ptq.full_vector_r3:
+            worse = [i for i, e in enumerate(res.report["per_layer"])
+                     if e["max_block_l1_after"]
+                     > e["max_block_l1_before"] * (1 + 1e-6)]
+            if worse:
+                problems.append(f"{label}: MassDiff raised the max block "
+                                f"l1 of layers {worse}")
+        runs.append(rec)
+        del res, got
+    mse = {r["label"]: r["logit_mse"] for r in runs}
+    recovered, gap = {}, {}
+    for tag in ("", ", 8 batches"):
+        gap[tag.lstrip(", ") or "1 batch"] = g = \
+            mse["rtn_only"] - mse["quarot (full-vector R3)" + tag]
+        for k in ("perq_star", "perq_star, identity P3"):
+            recovered[k + tag] = (mse["rtn_only"] - mse[k + tag]) / g \
+                if g else None
+    gate = [mse[r[0]] for r in PTQ_RUNS[4:6]]
+    if not gate[0] < gate[1]:
+        problems.append(f"gate pair: MassDiff's MSE {gate[0]} is not below "
+                        f"identity's {gate[1]}")
+    paged = [check_model_paged(model, params, cfg.vocab)]
+    b = paged[0]
+    b["bound"] = (f"kernel_vs_forward <= {MODEL_BF16_RATIO} x "
+                  "plain_vs_forward")
+    b["ok"] = (b["launches_ok"] and b["finite"]
+               and b["kernel_vs_forward_of_max_logit"]
+               <= MODEL_BF16_RATIO * b["plain_vs_forward_of_max_logit"])
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = to_f32(params)
+    del params
+    paged.append(check_model_paged(build_model(cfg32), params32, cfg.vocab))
+    f = paged[1]
+    f["bound"] = MODEL_F32_FRAC
+    f["ok"] = (f["launches_ok"] and f["finite"]
+               and max(f["kernel_vs_plain_same_pool_of_max_logit"])
+               <= MODEL_F32_FRAC
+               and f["kernel_vs_forward_of_max_logit"] <= MODEL_F32_FRAC)
+    del params32
+    torch.cuda.empty_cache()
+    for rec in paged:
+        if not rec["ok"]:
+            problems.append(f"the {rec['dtype']} Model's paged path: {rec}")
+
+    full = ["--requests", "8", "--max-new", "16", "--prompt-len", "40-160"]
+    served = []
+    for label, extra, expect in (
+            ("perq_star, integer path, int4 KV pages, 16 layers",
+             ["--preset", "perq_star", "--integer-path", "--kv-bits", "4"],
+             MAIN_PATH_KERNELS),
+            ("bf16 (--no-quant), f32 pages, 16 layers", ["--no-quant"],
+             ("paged_attention",)),
+            ("fake-quant perq_star (the default), f32 pages, 4 layers",
+             ["--layers", "4"], ("paged_attention",))):
+        torch.cuda.reset_peak_memory_stats()
+        result, rec = run_launcher(label, extra + full, expect=expect,
+                                  base=ENGINE_ARGS)
+        del result
+        served.append(rec)
+    served.append(run_legacy(["--no-quant", "--legacy-scheduler", "--layers",
+                              "2", "--requests", "8", "--max-new", "8",
+                              "--prompt-len", "40-160"]))
+    problems += [f"{r['label']}: {r.get('problems')}" for r in served
+                 if not r["ok"]]
+    emit("ptq", ok=not problems, model="llama3-1b, 16 layers, d_model 2048, "
+         "d_ff 8192, vocab 128256, bf16, seeded, outliers injected",
+         calibration="[4, 128] token batches", held_out="[2, 64] tokens",
+         runs=runs, recovered_share=recovered,
+         rtn_only_to_quarot_gap=gap, model_paged=paged,
+         served=served, problems=problems)
+    if problems:
+        fail(f"ptq phase: {problems}")
+
+
+# ---------------------------------------------------------------------------
 
 # the case of each kernel that the closing record reports: the shape a
 # decode step of the served model gives it
@@ -1597,6 +1854,8 @@ def main(argv=None):
     phase_robust(adapter, serve_tokens)
     if args.profile:
         phase_profile(adapter)
+    del adapter
+    phase_ptq()
     print(smi, flush=True)
     print(json.dumps(kernel_record(cases, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,22 @@
-"""Serving launcher: pack seeded weights to int4 and serve them through the
-paged-KV continuous-batching engine.
+"""Serving launcher: quantise seeded weights with the paper's PTQ pipeline,
+then serve them through the paged-KV continuous-batching engine.
 
-    python -m repro_torch.launch.serve --arch llama3-1b --integer-path \\
-        --kv-bits 4 --block-size 16
+    python -m repro_torch.launch.serve --arch llama3-1b --preset perq_star \\
+        --block-size 16 [--integer-path --kv-bits 4 | --no-quant]
 
 Runs on a CUDA device by default (`--device cpu` for a CPU run; with
-`--device cuda` and no card it exits non-zero). So far it serves the
-packed-int4 integer path (`--integer-path`, dense archs, optional
-`--kv-bits {4,8}` integer KV pages) with `--preset rtn_only`: the weights
-are freshly initialised from a seeded generator, given LLM-like outlier
-channels, and rounded to nearest on a per-channel symmetric int4 grid. The
-calibrated presets and the bf16 and fake-quant paths are not ported yet;
-asking for one exits with a line naming the ROADMAP queue item.
+`--device cuda` and no card it exits non-zero). The weights are freshly
+initialised from a seeded generator and given LLM-like outlier channels;
+unless `--no-quant`, `core.pipeline.quantize_model` then quantises them
+with `--preset` (every preset of the reference, `perq_star` by default),
+calibrated on one [4, 128] token batch drawn from
+`numpy.random.default_rng(seed + 1)`. Three paths serve through the same
+engine: the fake-quant model (the default: the `Model` with the PTQ hooks,
+f32 KV pages), the bf16 model (`--no-quant`), and the packed-int4 integer
+path (`--integer-path`, dense archs, optional `--kv-bits {4,8}` integer KV
+pages), which packs the PTQ result. `--legacy-scheduler` serves the bf16 or
+fake-quant model through the dense-slot `serve.step.BatchScheduler`
+instead. The MoE, SSM and hybrid families are ROADMAP Queue A10.
 
 The engine options are the JAX launcher's: `--admission` (`optimistic`, the
 default, or `reserve`), `--deadline-s`, `--prefix-cache` /
@@ -28,9 +33,9 @@ https://ui.perfetto.dev), and `--probe-every K` samples the rotation-quality
 activation probes every K decode forwards (integer path). Both files pass
 `python -m repro_torch.serve.telemetry.check m.json --trace t.json`.
 
-Every run ends with `served N requests...`, one `req i: prompt -> tokens`
-line per request and a one-line `summary:` from the engine's metrics
-registry (and a `quality:` line when probes ran).
+Every engine run ends with `served N requests...`, one `req i: prompt ->
+tokens` line per request and a one-line `summary:` from the engine's
+metrics registry (and a `quality:` line when probes ran).
 """
 from __future__ import annotations
 
@@ -41,18 +46,17 @@ import numpy as np
 import torch
 
 from ..configs.registry import ARCH_IDS, get_config
+from ..core import pipeline as PL
 from ..core.synthetic import inject_outlier_channels
-from ..kernels import ops as kops
-from ..models import layers as L
+from ..models.transformer import build_model
 from ..serve.engine import (EngineRequest, SamplingParams, ServeEngine,
-                            as_servable, pages_for)
+                            as_servable, derive_state_spec, pages_for)
 from ..serve.quantized import QuantizedDenseLM, pack_dense_params
+from ..serve.step import BatchScheduler, Request
 from ..serve.telemetry import (QualityProbes, Tracer, validate_snapshot,
                                validate_trace)
 
-# the JAX launcher's preset names; only the first needs no calibration
-PRESETS = ("rtn_only", "quarot", "perq_star", "perq_dagger", "mr_rtn",
-           "mr_gptq", "mr_qronos", "brq_spin")
+CALIB_SHAPE = (4, 128)      # the reference launcher's calibration batch
 
 
 def _ms(v) -> str:
@@ -94,36 +98,6 @@ def summary_line(snap: dict) -> str:
     return out + f" | admission wait p95 {_ms(wait['p95'])}"
 
 
-def init_dense_params(cfg, gen: torch.Generator) -> dict:
-    """Freshly initialised dense-LM parameters, layer leaves stacked
-    `[n_layers, ...]`, drawn from `gen` on its device."""
-    dt = L.DTYPES[cfg.param_dtype]
-    dev = gen.device
-    spec = L.AttnSpec(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                      head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                      qkv_bias=cfg.qkv_bias)
-    embed = L._normal(gen, (cfg.vocab, cfg.d_model), 0.02, dt)
-    blocks = [{
-        "attn_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "attn": L.init_attention(gen, cfg.d_model, spec, dt),
-        "ffn_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt),
-    } for _ in range(cfg.n_layers)]
-
-    def stack(nodes):
-        if isinstance(nodes[0], dict):
-            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
-        return torch.stack(nodes)
-
-    return {
-        "embed": embed,
-        "layers": stack(blocks),
-        "final_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "lm_head": L._normal(gen, (cfg.d_model, cfg.vocab),
-                             cfg.d_model ** -0.5, dt),
-    }
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--arch", "--model", dest="arch",
@@ -133,7 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--layers", type=int, default=None, metavar="N",
                     help="cut the model to its first N layers (widths "
                     "unchanged)")
-    ap.add_argument("--preset", default="rtn_only", choices=PRESETS)
+    ap.add_argument("--preset", default="perq_star",
+                    choices=sorted(PL.PRESETS))
     ap.add_argument("--block-size", type=int, default=32)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=64)
@@ -152,8 +127,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-chunk", type=int, default=8)
     ap.add_argument("--integer-path", action="store_true")
     ap.add_argument("--kv-bits", type=int, default=None, choices=[4, 8])
-    ap.add_argument("--no-quant", action="store_true")
-    ap.add_argument("--legacy-scheduler", action="store_true")
+    ap.add_argument("--no-quant", action="store_true",
+                    help="serve the bf16 model instead")
+    ap.add_argument("--legacy-scheduler", action="store_true",
+                    help="use the dense-slot BatchScheduler (no paging)")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write the schema-validated engine metrics "
                     "snapshot as JSON")
@@ -196,29 +173,44 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(args):
-    """Exit with one line for every option that is not ported yet."""
-    waits = [
-        (args.no_quant, "--no-quant: the bf16 Model path is ROADMAP Queue A8"),
-        (not args.integer_path and not args.no_quant,
-         "the fake-quant path is ROADMAP Queue A8/A9; pass --integer-path"),
-        (args.legacy_scheduler,
-         "--legacy-scheduler: BatchScheduler is ROADMAP Queue A8"),
-        (args.preset != "rtn_only",
-         f"--preset {args.preset}: PTQ calibration is ROADMAP Queue A9; "
-         "use --preset rtn_only"),
-    ]
-    for cond, msg in waits:
-        if cond:
-            raise SystemExit(f"not ported yet: {msg}")
+def _refuse(args, cfg):
+    """Exit with one line for a combination the launcher does not serve:
+    the reference's refusals, and the families that are ROADMAP Queue
+    A10."""
+    if args.probe_every and not args.integer_path:
+        raise SystemExit("--probe-every needs --integer-path: the probes "
+                         "read the fused rotate+quantize site")
+    if cfg.family in ("moe", "ssm", "hybrid") or cfg.uses_moe:
+        raise SystemExit(f"not ported yet: {cfg.name} is family "
+                         f"{cfg.family!r}, ROADMAP Queue A10")
+    if args.integer_path and cfg.family not in ("dense", "vlm"):
+        raise SystemExit(f"--integer-path packs dense projections only; "
+                         f"{cfg.name} is family {cfg.family!r}")
+    if args.legacy_scheduler:
+        if args.integer_path:
+            raise SystemExit("--legacy-scheduler cannot drive the integer "
+                             "path; the paged engine serves it")
+        if args.metrics_json or args.trace:
+            raise SystemExit("--metrics-json/--trace instrument the paged "
+                             "engine; drop --legacy-scheduler")
+        if args.top_k > 0 or args.top_p < 1.0:
+            raise SystemExit("--legacy-scheduler has no top-k/top-p "
+                             "support; drop the flags or use the engine")
+        if args.prefix_cache:
+            raise SystemExit("--prefix-cache is a paged-engine feature; "
+                             "drop --legacy-scheduler")
+        if args.swap_host_mb is not None or args.drain_after is not None:
+            raise SystemExit("--swap-host-mb/--drain-after are paged-"
+                             "engine features; drop --legacy-scheduler")
+    else:
+        try:
+            derive_state_spec(cfg)
+        except ValueError as e:
+            raise SystemExit(str(e))
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.probe_every and not args.integer_path:
-        raise SystemExit("--probe-every needs --integer-path: the probes "
-                         "read the fused rotate+quantize site")
-    _refuse_unported(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu for a CPU run)")
@@ -236,17 +228,25 @@ def main(argv=None):
     if args.layers is not None:
         import dataclasses
         cfg = dataclasses.replace(cfg, n_layers=args.layers).validate()
-    if cfg.family not in ("dense", "vlm"):
-        raise SystemExit(f"--integer-path packs dense projections only; "
-                         f"{cfg.name} is family {cfg.family!r}")
+    _refuse(args, cfg)
 
+    model = build_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = inject_outlier_channels(init_dense_params(cfg, gen))
-    packed = pack_dense_params(params, cfg)
+    params = inject_outlier_channels(model.init(gen))
+    if args.no_quant:
+        smodel, sparams = model, params
+    else:
+        crng = np.random.default_rng(args.seed + 1)
+        tokens = torch.from_numpy(crng.integers(0, cfg.vocab, CALIB_SHAPE))
+        res = PL.quantize_model(
+            model, params, [{"tokens": tokens.to(device)}],
+            PL.preset(args.preset, block_size=args.block_size,
+                      cayley_steps=8))
+        smodel, sparams = PL.build_quantized_model(model, res), res.params
+        print(f"quantized {cfg.name} with {args.preset} "
+              f"(b={args.block_size}) on {device}")
     del params
-    print(f"packed {cfg.name} with rtn_only (b={args.block_size}) "
-          f"on {device}")
 
     rng = np.random.default_rng(args.seed)
     system = rng.integers(0, cfg.vocab, size=args.shared_prefix).tolist()
@@ -254,10 +254,29 @@ def main(argv=None):
         0, cfg.vocab, size=int(rng.integers(lo, hi + 1))).tolist()
         for _ in range(args.requests)]
 
-    qlm = QuantizedDenseLM(cfg, block_size=args.block_size,
-                           kv_bits=args.kv_bits)
-    adapter = as_servable(qlm, packed)
-    label = f"integer path (kv_bits={args.kv_bits})"
+    if args.legacy_scheduler:
+        sched = BatchScheduler(smodel, sparams, slots=args.slots,
+                               max_len=args.max_len,
+                               temperature=args.temperature, seed=args.seed)
+        for rid, prompt in enumerate(prompts):
+            sched.submit(Request(rid=rid, prompt=prompt,
+                                 max_new=args.max_new))
+        done = sched.run()
+        print(f"legacy scheduler: served {len(done)} requests over "
+              f"{args.slots} slots")
+        for r in sorted(done, key=lambda r: r.rid):
+            print(f"req {r.rid}: {r.prompt} → {r.generated}")
+        return {"done": done, "scheduler": sched}
+
+    if args.integer_path:
+        qlm = QuantizedDenseLM(cfg, block_size=args.block_size,
+                               kv_bits=args.kv_bits)
+        adapter = as_servable(qlm, pack_dense_params(sparams, cfg))
+        del sparams
+        label = f"integer path (kv_bits={args.kv_bits})"
+    else:
+        label = "bf16" if args.no_quant else "fake-quant"
+        adapter = as_servable(smodel, sparams, name=label)
 
     # enough pool for every slot to hold its worst-case sequence (the larger
     # of --max-len and the longest prompt + --max-new, which is what

@@ -10,8 +10,8 @@ rule. The kv data path is block-table-native: the pool and block tables
 flow into the model's `forward_chunk`, which writes new KV rows into their
 pages and attends by walking the table in `kernels.ops.paged_attention`.
 """
-from .adapter import (IntegerModelAdapter, ServableModel, StateSpec,
-                      as_servable, derive_state_spec)
+from .adapter import (DenseModelAdapter, IntegerModelAdapter, ServableModel,
+                      StateSpec, as_servable, derive_state_spec)
 from .faults import DispatchFault, FaultPlan, SwapFault
 from .pages import (SCRATCH_PAGE, HostPageRef, HostSwapPool, PageAllocator,
                     PagedKVCache, pages_for)
@@ -20,7 +20,8 @@ from .scheduler import (EngineRequest, EngineStalledError, SamplingParams,
                         ServeEngine)
 
 __all__ = [
-    "ServableModel", "StateSpec", "derive_state_spec", "IntegerModelAdapter",
+    "ServableModel", "StateSpec", "derive_state_spec", "DenseModelAdapter",
+    "IntegerModelAdapter",
     "as_servable", "PageAllocator", "PagedKVCache", "pages_for",
     "SCRATCH_PAGE", "EngineRequest", "EngineStalledError", "SamplingParams",
     "ServeEngine", "FaultPlan", "DispatchFault", "SwapFault", "RadixCache",

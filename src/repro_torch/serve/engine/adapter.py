@@ -9,8 +9,10 @@ caches, stored in page pools and addressed through block tables) and
 chunk against it: kv rows are scattered straight into their pages and
 attention walks the table through `kernels.ops.paged_attention`.
 
-Only the packed-int4 `QuantizedDenseLM` is servable so far; the bf16 and
-fake-quant `Model` paths wait for ROADMAP Queue A8.
+Two execution paths are servable: the bf16 or fake-quant `Model` (the
+fake-quant model is the same class with the PTQ hooks installed; float KV
+pages, f32 by default as in the reference) and the packed-int4
+`QuantizedDenseLM`. Register-slot state (SSM, hybrid) is ROADMAP Queue A10.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Any, Protocol, runtime_checkable
 
 import torch
 
+from ...models.transformer import Model
 from ..quantized import QuantizedDenseLM
 
 Params = dict[str, Any]
@@ -125,6 +128,43 @@ class _AdapterBase:
         return self.params["embed"].device
 
 
+class DenseModelAdapter(_AdapterBase):
+    """bf16 or fake-quant `Model` (the PTQ hooks ride along). Its state is
+    pure kv for the families the port serves, on the parameters'
+    device."""
+
+    def __init__(self, model: Model, params: Params, *, name: str = "bf16",
+                 cache_dtype=torch.float32):
+        super().__init__(model.cfg, params)
+        self.model = model
+        self.name = name
+        self.cache_dtype = cache_dtype
+
+    def init_state(self, n_pages: int, page_size: int,
+                   n_slots: int = 0) -> Params:
+        return self.model.init_paged_state(n_pages, page_size, n_slots,
+                                           dtype=self.cache_dtype,
+                                           device=self.device)
+
+    def init_cache(self, batch: int, max_len: int) -> Params:
+        return self.model.init_cache(batch, max_len, dtype=self.cache_dtype,
+                                     device=self.device)
+
+    def forward_chunk(self, params, tokens, cache, index, block_table=None,
+                      seq_lengths=None, register_index=None, *,
+                      probe=False):
+        if probe:
+            raise ValueError("quality probes are instrumented on the "
+                             "integer path only (QuantizedDenseLM)")
+        if register_index is not None:
+            raise ValueError("register-slot state is ROADMAP Queue A10")
+        paged = block_table is not None
+        caches = cache["kv"] if paged else cache
+        logits, _ = self.model.forward_chunk(params, tokens, caches, index,
+                                             block_table, seq_lengths)
+        return logits, cache
+
+
 class IntegerModelAdapter(_AdapterBase):
     """Packed-int4 `QuantizedDenseLM` (params = packed weights). Dense archs
     only, so its state is pure kv. The state lives on the parameters'
@@ -166,11 +206,11 @@ class IntegerModelAdapter(_AdapterBase):
         return (out[0], cache, *out[2:])
 
 
-def as_servable(model, params: Params) -> ServableModel:
+def as_servable(model, params: Params, **kw) -> ServableModel:
     """Wrap a supported execution path in its engine adapter."""
     if isinstance(model, QuantizedDenseLM):
         return IntegerModelAdapter(model, params)
-    raise NotImplementedError(
-        f"{type(model).__name__}: only the integer path (QuantizedDenseLM) "
-        "is servable so far; the bf16 / fake-quant Model adapters are "
-        "ROADMAP Queue A8")
+    if isinstance(model, Model):
+        return DenseModelAdapter(model, params, **kw)
+    raise TypeError(f"{type(model).__name__} is not a servable model "
+                    "(Model or QuantizedDenseLM)")

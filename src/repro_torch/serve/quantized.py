@@ -84,12 +84,6 @@ def pack_dense_params(params: Params, cfg: ArchConfig) -> Params:
     return out
 
 
-def _layer(tree: Params, l: int) -> Params:
-    """Views of layer `l` of a stacked tree."""
-    return {k: (_layer(v, l) if isinstance(v, dict) else v[l])
-            for k, v in tree.items()}
-
-
 def _int_matmul(quant, packed: Params, dtype) -> torch.Tensor:
     codes, s, z = quant
     y = kops.int4_matmul(codes, s, z, packed["packed"], packed["scale"],
@@ -263,11 +257,7 @@ class QuantizedDenseLM:
         per_slot = torch.is_tensor(index) and index.dim() == 1
         if per_slot and s != 1:
             raise ValueError("per-slot cache_index requires q_len == 1")
-        steps = torch.arange(s, device=dev, dtype=torch.int32)[None, :]
-        if per_slot:
-            pos = index.to(torch.int32)[:, None] + steps
-        else:
-            pos = (steps + int(index)).expand(b, s)
+        pos = L.chunk_positions(b, s, index, dev)
         q = L.apply_rope(q, pos, spec.rope_theta)
         if self.kv_bits is None:
             # float cache: rotate only the new rows, store post-RoPE
@@ -340,9 +330,9 @@ class QuantizedDenseLM:
         x = params["embed"][tokens.to(torch.int64)].to(self.compute_dtype)
         per_layer = []
         for l in range(cfg.n_layers):
-            x, _, stats = self._block(x, _layer(params["layers"], l),
-                                      _layer(cache, l), index, block_table,
-                                      seq_lengths, probe)
+            x, _, stats = self._block(
+                x, L.layer_view(params["layers"], l), L.layer_view(cache, l),
+                index, block_table, seq_lengths, probe)
             per_layer.append(stats)
         x = L.apply_norm(x, params["final_norm"], cfg.norm)
         logits = x @ params["lm_head"].to(x.dtype)

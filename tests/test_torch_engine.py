@@ -9,8 +9,9 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.core.synthetic import inject_outlier_channels
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.serve import init_dense_params
-from repro_torch.serve.engine import (SCRATCH_PAGE, EngineRequest,
+from repro_torch.models.transformer import build_model
+from repro_torch.serve.engine import (SCRATCH_PAGE, DenseModelAdapter,
+                                      EngineRequest,
                                       FaultPlan, IntegerModelAdapter,
                                       PageAllocator, PagedKVCache,
                                       RadixCache, SamplingParams,
@@ -123,8 +124,18 @@ def test_state_spec_and_unported_paths_raise():
     assert derive_state_spec(get_config("mamba2-1.3b")).register
     with pytest.raises(ValueError):
         derive_state_spec(get_config("hubert-xlarge"))
-    with pytest.raises(NotImplementedError, match="A8"):
+    cfg = get_config("llama3-1b").reduced()
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    model = build_model(cfg)
+    adapter = as_servable(model, model.init(gen), name="bf16")
+    assert isinstance(adapter, DenseModelAdapter)
+    assert adapter.cache_dtype == torch.float32
+    assert adapter.init_state(5, 4)["kv"]["k"].shape == (2, 5, 4, 2, 32)
+    with pytest.raises(TypeError):
         as_servable(object(), {})
+    with pytest.raises(NotImplementedError, match="A10"):
+        build_model(get_config("deepseek-moe-16b").reduced())
     with pytest.raises(ValueError):
         QuantizedDenseLM(get_config("mamba2-1.3b").reduced())
 
@@ -137,7 +148,7 @@ def served():
     gen = torch.Generator(device="cpu")
     gen.manual_seed(0)
     packed = pack_dense_params(
-        inject_outlier_channels(init_dense_params(cfg, gen)), cfg)
+        inject_outlier_channels(build_model(cfg).init(gen)), cfg)
     return cfg, packed
 
 

@@ -27,7 +27,7 @@ import torch
 from repro.serve.engine.faults import FaultPlan as JaxFaultPlan
 from repro_torch.configs.registry import get_config
 from repro_torch.core.synthetic import inject_outlier_channels
-from repro_torch.launch.serve import init_dense_params
+from repro_torch.models.transformer import build_model
 from repro_torch.serve.engine import (DispatchFault, EngineRequest,
                                       EngineStalledError, FaultPlan,
                                       SamplingParams, ServeEngine, SwapFault,
@@ -86,7 +86,7 @@ def served():
     gen = torch.Generator(device="cpu")
     gen.manual_seed(0)
     packed = pack_dense_params(
-        inject_outlier_channels(init_dense_params(cfg, gen)), cfg)
+        inject_outlier_channels(build_model(cfg).init(gen)), cfg)
     return cfg, packed
 
 

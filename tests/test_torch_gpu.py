@@ -24,7 +24,7 @@ from repro_torch.kernels import hadamard_quant as HQ
 from repro_torch.kernels import int4_matmul as I4
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_attention as PA
-from repro_torch.launch.serve import init_dense_params
+from repro_torch.models.transformer import build_model
 from repro_torch.serve.engine import (EngineRequest, SamplingParams,
                                       ServeEngine, as_servable)
 from repro_torch.serve.quantized import QuantizedDenseLM, pack_dense_params
@@ -642,7 +642,7 @@ def served_gpu():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     packed = pack_dense_params(
-        inject_outlier_channels(init_dense_params(cfg, gen)), cfg)
+        inject_outlier_channels(build_model(cfg).init(gen)), cfg)
     return cfg, packed
 
 
@@ -756,7 +756,7 @@ import torch
 sys.path.insert(0, "src")
 from repro_torch.configs.registry import get_config
 from repro_torch.core.synthetic import inject_outlier_channels
-from repro_torch.launch.serve import init_dense_params
+from repro_torch.models.transformer import build_model
 from repro_torch.serve.engine import (EngineRequest, IntegerModelAdapter,
                                       SamplingParams, ServeEngine)
 from repro_torch.serve.quantized import QuantizedDenseLM, pack_dense_params
@@ -772,7 +772,7 @@ class ReadsTheHost(IntegerModelAdapter):
 cfg = get_config("llama3-1b").reduced()
 gen = torch.Generator(device="cuda")
 gen.manual_seed(0)
-packed = pack_dense_params(inject_outlier_channels(init_dense_params(cfg, gen)), cfg)
+packed = pack_dense_params(inject_outlier_channels(build_model(cfg).init(gen)), cfg)
 engine = ServeEngine(ReadsTheHost(QuantizedDenseLM(cfg, block_size=16, kv_bits=4), packed),
                      n_pages=9, page_size=4, max_seqs=2, prefill_chunk=8)
 engine.submit(EngineRequest(rid=0, prompt=[1, 2, 3], sampling=SamplingParams(max_new=4)))
@@ -938,3 +938,101 @@ def test_no_pool_write_inside_a_capture(served_gpu, dev):
     graph.replay()
     torch.cuda.synchronize()
     assert float(x.sum()) == 4.0
+
+
+# ---------------------------------------------------------------------------
+# The bf16 / fake-quant Model path: f32 pages, the PTQ pipeline on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,lens", [(1, [120, 0, 37, 113]), (32, [128])],
+                         ids=["decode", "prefill"])
+def test_paged_attention_f32_pages_at_the_model_paths_shapes(dev, s, lens):
+    """The `Model` path's attention: bf16 queries (32 heads of 64 over 8 KV
+    heads) over f32 post-RoPE pages, no in-walk rotation."""
+    _attention_case(dev, "float", 16, s, 4, 64, lens, 8, None, torch.bfloat16,
+                    kh=8)
+
+
+def _ptq_inputs(device):
+    from repro_torch.core import pipeline as TP
+    cfg = get_config("llama3-1b").reduced()
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = inject_outlier_channels(build_model(cfg).init(gen))
+    rng = np.random.default_rng(1)
+    calib = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 128)))
+    held = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 64)))
+    move = lambda tree: {k: move(v) if isinstance(v, dict) else v.to(device)  # noqa: E731
+                         for k, v in tree.items()}
+    return TP, cfg, move(params), calib.to(device), held.to(device)
+
+
+@pytest.mark.parametrize("name", ["rtn_only", "perq_star", "mr_gptq"])
+def test_quantize_model_on_the_card_matches_the_cpu(dev, name):
+    """`quantize_model` on the card against the port on the CPU from the
+    same params and tokens: the per-layer block mass before the permutation
+    within 1e-5 relative, after it within 1e-3 (the captures differ in
+    their last f32 bits, so the greedy may place two near-equal coordinates
+    the other way); rtn_only's weights on the same grid points but at ties
+    (<= 0.1 %); for
+    the error-diffusing presets the fake-quant logit MSE against the bf16
+    model within 5 % (the rounding is chaotic in the inputs' last bits)."""
+    out = {}
+    for device in ("cpu", dev):
+        TP, cfg, params, calib, held = _ptq_inputs(device)
+        model = build_model(cfg)
+        res = TP.quantize_model(model, params, [{"tokens": calib}],
+                                TP.preset(name, block_size=16))
+        want = model.forward(params, {"tokens": held})
+        got = TP.build_quantized_model(model, res).forward(
+            res.params, {"tokens": held})
+        assert bool(torch.isfinite(got).all())
+        out[str(device)] = (res, float(((got - want) ** 2).mean()))
+    (cpu, e_cpu), (card, e_card) = out["cpu"], out[str(dev)]
+    for a, b in zip(cpu.report["per_layer"], card.report["per_layer"]):
+        for k, frac in (("max_block_l1_before", 1e-5),
+                        ("max_block_l1_after", 1e-3)):
+            assert abs(b[k] - a[k]) <= frac * abs(a[k])
+    if name == "rtn_only":
+        w_cpu = cpu.params["layers"]["ffn"]["w_down"]
+        w_card = card.params["layers"]["ffn"]["w_down"].cpu()
+        off = ~torch.isclose(w_card, w_cpu, rtol=1e-5,
+                             atol=1e-6 * float(w_cpu.abs().max()))
+        assert float(off.float().mean()) <= 1e-3
+    assert abs(e_card - e_cpu) <= 0.05 * e_cpu
+
+
+def test_bf16_model_decode_graphed_bit_equal_to_eager(dev):
+    """The `DenseModelAdapter` (bf16 model, f32 pages) served with each
+    decode step replayed from a captured graph and eagerly: tokens and
+    every step's logits bit-equal, launch counts equal, attention on the
+    kernel."""
+    cfg = get_config("llama3-1b").reduced()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = build_model(cfg)
+    params = inject_outlier_channels(model.init(gen))
+    runs = []
+    for eager in (True, False):
+        engine = ServeEngine(as_servable(model, params), n_pages=3 * 8 + 1,
+                             page_size=4, max_seqs=3, prefill_chunk=8,
+                             record_logits=True, eager=eager)
+        rng = np.random.default_rng(6)
+        for rid, (n, _) in enumerate(GRAPH_REQUESTS):
+            engine.submit(EngineRequest(
+                rid=rid, prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                sampling=SamplingParams(max_new=12)))
+        kops.reset_kernel_launch_counts()
+        kops.reset_dispatch_counts()
+        done = {r.rid: r for r in engine.run()}
+        torch.cuda.synchronize()
+        engine.check_books()
+        runs.append((engine, done, kops.count_snapshot()))
+    (_, want, c_eager), (graphed, got, c_graph) = runs
+    assert graphed.graph_stats()["graphs"] >= 1
+    assert c_graph == c_eager and c_graph[0]["paged_attention"] > 0
+    assert not [k for k in c_graph[1] if k[1] == "ref"]
+    for rid, r in want.items():
+        assert got[rid].generated == r.generated
+        for g, w in zip(got[rid].step_logits, r.step_logits):
+            assert np.array_equal(g, w)

@@ -28,6 +28,7 @@ from repro.serve import quantized as jq
 from repro_torch import interop
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.synthetic import inject_outlier_channels
+from repro_torch.models.layers import layer_view
 from repro_torch.serve import quantized as tq
 from repro_torch.serve.engine import pages_for
 
@@ -183,7 +184,7 @@ def test_block_layer_by_layer(kv_bits):
                                         cache_l, jindex)
             tcache = interop.cache_from_jax(to_numpy_tree(cache_l), "cpu")
             got_x, got_cache, _ = tm._block(
-                torch.from_numpy(np.array(x)), tq._layer(tp["layers"], l),
+                torch.from_numpy(np.array(x)), layer_view(tp["layers"], l),
                 tcache, tindex)
             assert_close_max(N(got_x), want_x)
             for name in want_cache:
@@ -258,7 +259,7 @@ def test_bfloat16_compute_block_by_block(kv_bits):
                                     jnp.asarray(0, jnp.int32))
         got_x, got_cache, _ = tm._block(
             interop.tensor_from_numpy(np.asarray(x), "cpu"),
-            tq._layer(tp["layers"], l),
+            layer_view(tp["layers"], l),
             interop.cache_from_jax(to_numpy_tree(cache_l), "cpu"), 0)
         assert got_x.dtype == torch.bfloat16
         for name in want_cache:

@@ -13,6 +13,7 @@ from repro.models.transformer import build_model
 from repro.serve import quantized as jq
 from repro_torch import interop
 from repro_torch.configs.registry import get_config
+from repro_torch.kernels import ops as kops
 from repro_torch.launch import serve as cli
 from repro_torch.serve.engine import (EngineRequest, SamplingParams,
                                       ServeEngine, as_servable)
@@ -24,6 +25,7 @@ FRAC = 5e-3      # of max|logit|: rounding ties of the activation quantiser
 @pytest.mark.parametrize("kv_bits", [None, 8, 4])
 def test_launcher_serves_on_the_cpu(kv_bits, capsys, tmp_path):
     argv = ["--arch", "llama3-1b", "--reduced", "--integer-path",
+            "--preset", "rtn_only",
             "--device", "cpu", "--block-size", "16", "--requests", "4",
             "--max-new", "4", "--slots", "2", "--prompt-len", "5-20",
             "--prefill-chunk", "8", "--page-size", "8",
@@ -49,6 +51,7 @@ def test_launcher_serves_on_the_cpu(kv_bits, capsys, tmp_path):
 
 def test_launcher_is_seeded(capsys):
     argv = ["--arch", "qwen1.5-0.5b", "--reduced", "--integer-path",
+            "--preset", "rtn_only",
             "--device", "cpu", "--requests", "2", "--max-new", "3",
             "--layers", "1"]
     a = [r.generated for r in cli.main(argv)["done"]]
@@ -58,19 +61,68 @@ def test_launcher_is_seeded(capsys):
     assert a == b and a != c
 
 
-@pytest.mark.parametrize("extra,queue", [
-    (["--no-quant"], "A8"),
-    ([], "A8/A9"),                                   # fake-quant default
-    (["--integer-path", "--legacy-scheduler"], "A8"),
-    (["--integer-path", "--preset", "perq_star"], "A9"),
+@pytest.mark.parametrize("arch,family", [
+    ("mamba2-1.3b", "ssm"), ("zamba2-1.2b", "hybrid"),
+    ("deepseek-moe-16b", "moe"), ("llama4-maverick-400b-a17b", "moe"),
 ])
-def test_launcher_names_the_queue_item_of_what_it_does_not_serve(extra, queue):
+def test_launcher_names_the_queue_item_of_what_it_does_not_serve(arch,
+                                                                 family):
     with pytest.raises(SystemExit) as e:
-        cli.main(["--arch", "llama3-1b", "--reduced", "--device", "cpu"] + extra)
-    assert "not ported yet" in str(e.value) and f"Queue {queue}" in str(e.value)
+        cli.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    assert "not ported yet" in str(e.value) and "Queue A10" in str(e.value)
+    assert f"family {family!r}" in str(e.value)
+
+
+@pytest.mark.parametrize("extra,label", [
+    (["--no-quant"], "bf16"),
+    ([], "fake-quant"),                             # the default path
+    (["--integer-path", "--preset", "perq_star"], "integer path"),
+    (["--integer-path", "--legacy-scheduler"], None),
+])
+def test_launcher_serves_every_mode_on_the_cpu(extra, label, capsys):
+    """Every mode of the reference launcher serves on the CPU (the default
+    preset is perq_star, as there); the legacy scheduler refuses the
+    integer path with the reference's message."""
+    argv = ["--arch", "llama3-1b", "--reduced", "--device", "cpu",
+            "--block-size", "16", "--requests", "3", "--max-new", "3",
+            "--slots", "2"] + extra
+    if label is None:
+        with pytest.raises(SystemExit) as e:
+            cli.main(argv)
+        assert "cannot drive the integer path" in str(e.value)
+        return
+    kops.reset_dispatch_counts()
+    result = cli.main(argv)
+    out = capsys.readouterr().out
+    assert f"{label}" in out and "served 3 requests over 2 slots" in out
+    assert ("quantized llama3-1b-smoke with perq_star (b=16)" in out) \
+        == ("--no-quant" not in extra)
+    assert all(r.outcome == "length" and len(r.generated) == 3
+               for r in result["done"])
+    counts = kops.dispatch_counts()
+    assert counts[("paged_attention", "ref")] > 0
+    assert (("int4_matmul", "ref") in counts) == ("--integer-path" in extra)
+
+
+def test_legacy_scheduler_serves_the_bf16_and_fake_quant_models(capsys):
+    """`--legacy-scheduler` drives the bf16 model through the dense slot
+    scheduler with the paged engine's greedy tokens, and serves the
+    fake-quant model too."""
+    argv = ["--arch", "llama3-1b", "--reduced", "--device", "cpu",
+            "--layers", "1", "--block-size", "16", "--requests", "3",
+            "--max-new", "3", "--slots", "2", "--max-len", "32"]
+    legacy = cli.main(argv + ["--no-quant", "--legacy-scheduler"])
+    engine = cli.main(argv + ["--no-quant"])
+    fake = cli.main(argv + ["--legacy-scheduler"])
+    out = capsys.readouterr().out
+    assert out.count("legacy scheduler: served 3 requests over 2 slots") == 2
+    assert {r.rid: r.generated for r in legacy["done"]} \
+        == {r.rid: r.generated for r in engine["done"]}
+    assert all(len(r.generated) == 3 for r in fake["done"])
 
 
 ROBUST_ARGV = ["--arch", "llama3-1b", "--reduced", "--integer-path",
+               "--preset", "rtn_only",
                "--device", "cpu", "--layers", "1", "--block-size", "16",
                "--requests", "4", "--max-new", "4", "--slots", "2",
                "--prompt-len", "5-12", "--prefill-chunk", "8",

@@ -30,7 +30,7 @@ from repro_torch import interop
 from repro_torch.configs.registry import get_config
 from repro_torch.core.synthetic import inject_outlier_channels
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.serve import init_dense_params
+from repro_torch.models.transformer import build_model
 from repro_torch.serve.engine import (EngineRequest, FaultPlan, HostSwapPool,
                                       PagedKVCache, SamplingParams,
                                       ServeEngine, as_servable)
@@ -272,7 +272,7 @@ def served():
     gen = torch.Generator(device="cpu")
     gen.manual_seed(0)
     packed = pack_dense_params(
-        inject_outlier_channels(init_dense_params(cfg, gen)), cfg)
+        inject_outlier_channels(build_model(cfg).init(gen)), cfg)
     return cfg, packed
 
 

@@ -28,7 +28,8 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.synthetic import inject_outlier_channels
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import serve as cli
-from repro_torch.launch.serve import init_dense_params
+from repro_torch.models.transformer import build_model as torch_model
+from repro_torch.models.layers import layer_view
 from repro_torch.serve import quantized as tq
 from repro_torch.serve.engine import (EngineRequest, IntegerModelAdapter,
                                       SamplingParams, ServeEngine,
@@ -246,7 +247,7 @@ def test_block_probe_stats_layer_by_layer(kv_bits):
                 x, jax.tree.map(lambda a: a[l], packed["layers"]), cache_l,
                 jindex)
             got_x, _, got = tm._block(
-                torch.from_numpy(np.array(x)), tq._layer(tp["layers"], l),
+                torch.from_numpy(np.array(x)), layer_view(tp["layers"], l),
                 interop.cache_from_jax(jax.tree.map(np.asarray, cache_l),
                                        "cpu"), tindex, probe=True)
             w = np.asarray(want_x)
@@ -326,7 +327,7 @@ def served():
     gen = torch.Generator(device="cpu")
     gen.manual_seed(0)
     packed = tq.pack_dense_params(
-        inject_outlier_channels(init_dense_params(cfg, gen)), cfg)
+        inject_outlier_channels(torch_model(cfg).init(gen)), cfg)
     return cfg, packed
 
 
@@ -502,8 +503,9 @@ def test_reset_metrics_gives_fresh_window(served):
 # the launcher and the check CLI
 # ----------------------------------------------------------------------
 
-LAUNCH = ["--arch", "llama3-1b", "--reduced", "--integer-path", "--device",
-          "cpu", "--block-size", "16", "--kv-bits", "4", "--requests", "4",
+LAUNCH = ["--arch", "llama3-1b", "--reduced", "--integer-path",
+          "--preset", "rtn_only", "--device", "cpu", "--block-size", "16",
+          "--kv-bits", "4", "--requests", "4",
           "--max-new", "4", "--slots", "2", "--prompt-len", "5-20",
           "--prefill-chunk", "8", "--page-size", "8"]
 
@@ -552,7 +554,7 @@ def served_cpu():
     cfg = get_config("llama3-1b").reduced(n_layers=1)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(1)
-    return cfg, tq.pack_dense_params(init_dense_params(cfg, gen), cfg)
+    return cfg, tq.pack_dense_params(torch_model(cfg).init(gen), cfg)
 
 
 def test_launcher_probe_every_needs_the_integer_path():
