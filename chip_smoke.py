@@ -49,6 +49,23 @@ on all three paths. Phases print one JSON line each:
              the integer path (int4 pages, 16 layers), --no-quant (16
              layers), the fake-quant default (4 layers), each decode
              graphed, and --legacy-scheduler (2 layers)
+    train    the training path at llama3-1b's full width and depth: seeded
+             bf16 params, 8 AdamW steps of [4, 512] Markov-Zipf batches
+             (drawn beforehand; the draw timed alone and through the
+             Prefetcher) in 2 micro-batches with remat; ms per step (CUDA
+             events), tokens/s, model-FLOPs share of the bf16 peak, peak
+             memory; the loss must fall, the same step without remat must
+             give the same loss, and an async checkpoint of the trained
+             params must restore bit for bit; with --profile one more step
+             under torch.profiler (device-busy ms, idle share, kernels)
+    paper    the paper's tables on the surrogate trained on the card
+             (`repro_torch.paper`): bf16 perplexity, Tables 1 (Qronos) and
+             5 (RTN) at b = 8..256 with full-vector, Table 6, Table 2,
+             Tables 3/4, MassDiff's speed at Llama3-8B's geometry, the
+             Figure 3-5 summaries, the paper's orderings with `holds`
+             flags and the share of the No-Permute-to-full-vector gap PeRQ
+             closes at b = 16; then `examples/serve_quantized` on the card,
+             whose attention must run on the kernel alone
     profile  (only with --profile) where a pure decode step's time goes,
              eager and graphed, without and with the probe
     ptxas    (only with --ptxas) registers, spills and shared memory of
@@ -66,8 +83,9 @@ with the per-kernel record of this run, then as the last line
 non-zero exit code; without a CUDA device it exits at once.
 
 Bounds use the published peaks of one H100 SXM: 3.35 TB/s of device memory,
-1979 TOP/s int8, 495 TFLOP/s TF32 on the tensor cores (attention's
-products), 67 TFLOP/s float32 outside the tensor cores.
+1979 TOP/s int8, 989 TFLOP/s bf16 (the train step's model-FLOPs share),
+495 TFLOP/s TF32 on the tensor cores (attention's products), 67 TFLOP/s
+float32 outside the tensor cores.
 """
 from __future__ import annotations
 
@@ -106,6 +124,7 @@ from repro_torch.kernels import paged_attention as PA  # noqa: E402
 DEV = torch.device("cuda", 0)
 PEAK_BYTES_S = 3.35e12
 PEAK_INT8_OPS_S = 1979e12
+PEAK_BF16_FLOPS_S = 989e12
 PEAK_TF32_FLOPS_S = 495e12
 PEAK_F32_FLOPS_S = 67e12
 L2_BYTES = 50 * 2 ** 20
@@ -351,20 +370,22 @@ MERGE_LAUNCHES = 20     # launches of a split call that must agree bit for bit
 
 
 def check_attention(rng, label, fmt, b, s, lens, n_cols, theta, kv_splits=None,
-                    live_pool=False):
-    """The attention kernel against its plain version on one seeded case of
-    the served model's widths, then timed over 16 layers' pools. A split
-    call (the default splits at decode, or `kv_splits`) must launch once and
-    merge in that launch, and give one bit pattern over `MERGE_LAUNCHES`
-    launches. The pool holds a page per table column of every row, or with
-    `live_pool` only the live pages."""
-    h, kh, dh, t, n_layers = 32, 8, 64, 16, 16
+                    live_pool=False, h=32, kh=8, dh=64, t=16,
+                    q_dtype=torch.bfloat16):
+    """The attention kernel against its plain version on one seeded case,
+    by default of the served llama3-1b's widths (`h` query and `kh` KV
+    heads of `dh`, pages of `t` rows, bf16 queries), then timed over 16 layers' pools. A
+    split call (the default splits at decode, or `kv_splits`) must launch
+    once and merge in that launch, and give one bit pattern over
+    `MERGE_LAUNCHES` launches. The pool holds a page per table column of
+    every row, or with `live_pool` only the live pages."""
+    n_layers = 16
     used = [-(-ln // t) for ln in lens]
     n_pages = 1 + (sum(used) if live_pool else b * n_cols)
     pool = make_pool(rng, n_layers, n_pages, t, kh, dh, fmt)
     bits = {"bf16": None, "f32": None, "int8": 8, "int4": 4}[fmt]
     q = torch.from_numpy(rng.standard_normal((b, s, h, dh)).astype(np.float32)).to(DEV)
-    q = q.to(torch.bfloat16)
+    q = q.to(q_dtype)
     perm = rng.permutation(np.arange(1, n_pages))
     offs = np.cumsum([0] + used)[:-1] if live_pool else np.arange(b) * n_cols
     bt = np.zeros((b, n_cols), np.int32)
@@ -427,7 +448,8 @@ def check_attention(rng, label, fmt, b, s, lens, n_cols, theta, kv_splits=None,
     per_row = kh * dh * pool["k"].element_size() * 2
     if bits:
         per_row += kh * 4 * 4
-    nbytes = sum(lens) * per_row + q.numel() * 2 + out.numel() * 4 + bt.numel() * 4
+    nbytes = (sum(lens) * per_row + q.numel() * q.element_size()
+              + out.numel() * 4 + bt.numel() * 4)
     live_pairs = int(torch.minimum(qpos + 1, lens_t[:, None]).clamp_min(0).sum())
     flops = 4.0 * h * dh * live_pairs
     bms, by = bound(nbytes, flops, PEAK_TF32_FLOPS_S)
@@ -449,7 +471,8 @@ def check_attention(rng, label, fmt, b, s, lens, n_cols, theta, kv_splits=None,
                  "merge_plain_ms": time_ms([lambda: PA.combine_partials_plain(
                      m_p, l_p, acc_p)], 20),
                  "bit_equal_over_launches": stable, "launches_compared": MERGE_LAUNCHES}
-    return {"shape": f"{label}: q[{b},{s},{h},{dh}] bf16, {fmt} pages T={t}, "
+    qdt = {torch.bfloat16: "bf16", torch.float32: "f32"}[q_dtype]
+    return {"shape": f"{label}: q[{b},{s},{h},{dh}] {qdt}, {fmt} pages T={t}, "
                      f"lens={lens}, table {n_cols} cols"
                      + (f", kv_splits={kv_splits}" if kv_splits else ""),
             "ok": ok, "max_abs_err": err, "used_combine": used_combine,
@@ -569,6 +592,22 @@ def phase_kernels():
         cases["paged_attention"].append(check_attention(
             rng, "decode, 256-column table", fmt, 4, 1, [4096, 0, 2900, 1500], 256,
             theta, live_pool=True))
+    # the served example's shapes (`examples/serve_quantized`: the reduced
+    # qwen1.5-0.5b's heads, f32 pages of 8 rows, 4 slots, prefill chunks of
+    # 8; the fake-quant model computes in f32): a decode step over two-page
+    # tables and a chunk at position 0 and 8
+    from repro_torch.configs.registry import get_config
+    from repro_torch.examples import serve_quantized as SQ
+    ex = get_config(SQ.ARCH).reduced()
+    ex = dict(h=ex.n_heads, kh=ex.n_kv_heads, dh=ex.head_dim, t=SQ.PAGE_SIZE)
+    c = SQ.PREFILL_CHUNK
+    for label, b, s, lens, n_cols in (
+            ("example decode", SQ.MAX_SEQS, 1, [15, 0, 9, 12], 2),
+            ("example prefill", 1, c, [c], 1),
+            ("example prefill", 1, c, [2 * c], 2)):
+        cases["paged_attention"].append(check_attention(
+            rng, label, "f32", b, s, lens, n_cols, theta, q_dtype=torch.float32,
+            **ex))
     # the split merge in the kernel's last-arriving block (the reference's
     # `_combine_kernel`): explicit 2 and 8 splits over 8 columns and 13 over
     # 16 (splits 8-12 past the table), dead splits and a row of length 0
@@ -1584,12 +1623,6 @@ MODEL_F32_FRAC = 5e-4
 MODEL_BF16_RATIO = 1.5
 
 
-def to_f32(tree):
-    """A parameter tree's f32 copy."""
-    return {k: to_f32(v) if isinstance(v, dict) else v.float()
-            for k, v in tree.items()}
-
-
 def check_model_paged(model, params, vocab):
     """A 32-token and a 15-token prefill chunk, then one per-slot decode
     step, 2 sequences over 16-row f32 pages: the kernels' logits against
@@ -1666,6 +1699,7 @@ def phase_ptq():
     from repro_torch.core import pipeline as PL
     from repro_torch.core.synthetic import inject_outlier_channels
     from repro_torch.models.transformer import build_model
+    from repro_torch.tree import tree_map
     cfg = get_config("llama3-1b")
     model = build_model(cfg)
     gen = torch.Generator(device=DEV)
@@ -1733,7 +1767,7 @@ def phase_ptq():
                <= MODEL_BF16_RATIO * b["plain_vs_forward_of_max_logit"])
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
-    params32 = to_f32(params)
+    params32 = tree_map(lambda t: t.float(), params)
     del params
     paged.append(check_model_paged(build_model(cfg32), params32, cfg.vocab))
     f = paged[1]
@@ -1776,6 +1810,372 @@ def phase_ptq():
          served=served, problems=problems)
     if problems:
         fail(f"ptq phase: {problems}")
+
+
+# ---------------------------------------------------------------------------
+# phase: train
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 512, 2
+# the remat=False step against the remat=True step from the same params and
+# batch. The forward is the same arithmetic either way, so the loss can only
+# differ by a fault; remat's risk is in the backward, which recomputes each
+# layer through torch.utils.checkpoint over `unstack` views. Held to one
+# bf16 rounding (2^-8 relative): the loss, the grad norm, and in l2 norm
+# every gradient leaf of one micro-batch and every updated param leaf.
+REMAT_REL = 2.0 ** -8
+
+
+def loss_grads(model, params, batch, remat: bool) -> list:
+    """The gradient of `Model.loss_fn` for every leaf of `params`."""
+    from repro_torch.tree import leaves, unflatten
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss, _ = model.loss_fn(unflatten(params, flat), batch, remat=remat)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(flat, grads)]
+
+
+def rel_norm_diffs(a: list, b: list) -> list[float]:
+    """Per leaf, ||a - b|| / ||b|| in f32 (0 where both are 0)."""
+    out = []
+    for x, y in zip(a, b):
+        d = float((x.float() - y.float()).norm())
+        n = float(y.float().norm())
+        out.append(d / n if n > 0 else (0.0 if d == 0 else math.inf))
+    return out
+
+
+def tree_bits_equal(a, b) -> bool:
+    from repro_torch.tree import leaves
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return all(x.device == y.device and x.dtype == y.dtype
+               and torch.equal(bits(x), bits(y))
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def model_flops_per_step(cfg, n_matmul_params: int, tokens: int) -> float:
+    """6·N·tokens (N: the parameters in matmuls, i.e. all but the embedding
+    table, which is a gather) plus causal-blind attention, 12·L·H·Dh·S per
+    token (PaLM's model-FLOPs count, appendix B)."""
+    return (6 * n_matmul_params
+            + 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim
+            * TRAIN_SEQ) * tokens
+
+
+def profile_train_step(step, params, opt, batch, step_ms: float) -> dict:
+    """One more train step under torch.profiler: device-busy ms, the idle
+    share against the timed steps' mean, kernels and the top kernels by
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = step(params, opt, batch)
+        torch.cuda.synchronize()
+    del out
+    # kernel events only: an aten op's row repeats its kernels' time
+    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e3
+    gemm = sum(us for k, us, _ in rows
+               if any(w in k.lower()
+                      for w in ("gemm", "xmma", "cutlass", "nvjet"))) / 1e3
+    return {"device_busy_ms": busy, "idle_share_vs_timed_step":
+            max(0.0, 1 - busy / step_ms), "kernels": sum(r[2] for r in rows),
+            "gemm_ms": gemm,
+            "top_kernels": [{"name": k[:90], "ms": us / 1e3, "calls": c}
+                            for k, us, c in rows[:15]]}
+
+
+def phase_train(profile: bool = False):
+    """The training path at llama3-1b's full width and depth: seeded bf16
+    params on the card, AdamW, `make_train_step` with remat and two
+    micro-batches on [4, 512] batches drawn beforehand by the port's corpus;
+    then the same step without remat, and a checkpoint round trip. With
+    `profile`, one more step under torch.profiler."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import (DataConfig, Prefetcher,
+                                           SyntheticCorpus, batch_iterator)
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.paper.common import to_device
+    from repro_torch.train.step import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+    cfg = get_config("llama3-1b")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    n_params = sum(p.numel() for p in leaves(params))
+    n_matmul = n_params - params["embed"].numel() \
+        - sum(t.numel() for k in ("attn_norm", "ffn_norm")
+              for t in leaves(params["layers"][k])) \
+        - params["final_norm"]["scale"].numel()
+
+    # the batches, drawn before the timed window (the corpus is a Python
+    # loop over numpy draws); the draw timed alone and through a Prefetcher
+    corpus = SyntheticCorpus(cfg.vocab, seed=0)
+    dcfg = DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    it = batch_iterator(corpus, dcfg)
+    t0 = time.perf_counter()
+    host = [next(it) for _ in range(TRAIN_STEPS)]
+    draw_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    pf = Prefetcher(batch_iterator(corpus, dcfg), depth=2)
+    t0 = time.perf_counter()
+    for _ in range(4):
+        next(pf)
+    prefetch_ms = (time.perf_counter() - t0) * 1e3 / 4
+    pf.close()
+    batches = [to_device(b, DEV) for b in host]
+
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2,
+                                total_steps=TRAIN_STEPS)
+    step = make_train_step(model, opt_cfg, TrainConfig(
+        num_microbatches=TRAIN_MICRO, remat=True))
+    opt = adamw.init_state(opt_cfg, params)
+    start = [torch.cuda.Event(enable_timing=True) for _ in batches]
+    end = [torch.cuda.Event(enable_timing=True) for _ in batches]
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        start[i].record()
+        params, opt, m = step(params, opt, batch)
+        end[i].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    step_ms = [s.elapsed_time(e) for s, e in zip(start, end)]
+    peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    steady = step_ms[1:]
+    ms = sum(steady) / len(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops_per_step(cfg, n_matmul, tokens)
+    prof = profile_train_step(step, params, opt, batches[0], ms) \
+        if profile else None
+
+    # the same step without remat, from the trained params and the first
+    # batch, against the remat'd step from the same (REMAT_REL)
+    rstep = {r: make_train_step(model, opt_cfg, TrainConfig(
+        num_microbatches=TRAIN_MICRO, remat=r)) for r in (True, False)}
+    check, updated = {}, {}
+    for r in (True, False):
+        new, _, m = rstep[r](params, opt, batches[0])
+        check[r] = {"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"])}
+        updated[r] = leaves(new)
+        del new, _, m
+    update_rel = rel_norm_diffs(updated[True], updated[False])
+    del updated
+    mb = {k: v[:TRAIN_BATCH // TRAIN_MICRO] for k, v in batches[0].items()}
+    grads = {r: loss_grads(model, params, mb, r) for r in (True, False)}
+    grad_rel = rel_norm_diffs(grads[True], grads[False])
+    del grads
+    torch.cuda.empty_cache()
+
+    # a checkpoint round trip of the trained params, async, in the
+    # checkout's (git-ignored) build directory
+    root = _build.build_dir()
+    root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root, prefix="ckpt.") as tmp:
+        mgr = CheckpointManager(tmp, keep=1)
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, {"params": params})
+        save_s = time.perf_counter() - t0
+        mgr.wait()
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = mgr.restore(target={"params": params})["params"]
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ckpt_ok = tree_bits_equal(back, params)
+        del back
+
+    rec = {
+        "model": "llama3-1b, 16 layers, d_model 2048, d_ff 8192, 32/8 "
+                 "heads of 64, vocab 128256, bf16 params, seeded",
+        "parameters": n_params, "matmul_parameters": n_matmul,
+        "batch": [TRAIN_BATCH, TRAIN_SEQ], "microbatches": TRAIN_MICRO,
+        "remat": True, "steps": TRAIN_STEPS,
+        "optimizer": dataclasses.asdict(opt_cfg),
+        "losses": losses, "grad_norms": gnorms,
+        "step_ms": step_ms, "ms_per_step": ms,
+        "wall_s_all_steps": wall_s,
+        "tokens_per_s": tokens / (ms / 1e3),
+        "model_flops_per_step": flops,
+        "model_flops_formula": "6*N_matmul*tokens + 12*L*H*Dh*S*tokens",
+        "model_flops_share_of_989_tflops": flops / (ms / 1e3)
+        / PEAK_BF16_FLOPS_S,
+        "peak_device_memory_gib": peak_train,
+        "host_ms_per_batch_draw": draw_ms,
+        "host_ms_per_batch_through_prefetcher": prefetch_ms,
+        "remat_vs_no_remat": {
+            "loss": [check[True]["loss"], check[False]["loss"]],
+            "grad_norm": [check[True]["grad_norm"],
+                          check[False]["grad_norm"]],
+            "max_leaf_grad_rel_norm_diff": max(grad_rel),
+            "max_leaf_update_rel_norm_diff": max(update_rel),
+            "bound_rel": REMAT_REL},
+        "checkpoint": {"save_return_s": save_s, "save_until_wait_s": write_s,
+                       "restore_s": restore_s, "bit_equal": ckpt_ok,
+                       "gib": sum(p.numel() * p.element_size()
+                                  for p in leaves(params)) / 2 ** 30},
+        "profile": prof}
+    problems = []
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        problems.append("a loss or grad norm is not finite")
+    if not (losses[-1] + losses[-2]) / 2 < losses[0]:
+        problems.append(f"the loss did not fall: {losses}")
+    for k in ("loss", "grad_norm"):
+        if abs(check[True][k] - check[False][k]) \
+                > REMAT_REL * abs(check[False][k]):
+            problems.append(f"remat changed the {k}: {check}")
+    if not max(grad_rel) <= REMAT_REL:
+        problems.append(f"remat changed a gradient leaf: {grad_rel}")
+    if not max(update_rel) <= REMAT_REL:
+        problems.append(f"remat changed an updated param leaf: {update_rel}")
+    if not ckpt_ok:
+        problems.append("the restored params differ from the saved ones")
+    emit("train", ok=not problems, **rec, problems=problems)
+    del params, opt, batches, metrics
+    torch.cuda.empty_cache()
+    if problems:
+        fail(f"train phase: {problems}")
+
+
+# ---------------------------------------------------------------------------
+# phase: paper
+# ---------------------------------------------------------------------------
+
+def ordering_flags(t1, t6):
+    """The paper's orderings on the surrogate, each with a `holds` flag
+    (findings, not gates)."""
+    out = {}
+    for rounding, rows in t1.items():
+        ppl = {(m, b): v for m, b, v in rows}
+        bs = sorted(b for m, b in ppl if m == "perq")
+        full = ppl[("full_vector", "-")]
+        out[rounding] = {
+            "perq_le_no_permute_at_every_b": all(
+                ppl[("perq", b)] <= ppl[("no_permute", b)] for b in bs),
+            "both_approach_full_vector": all(
+                abs(ppl[(m, bs[-1])] - full) <= abs(ppl[(m, bs[0])] - full)
+                for m in ("perq", "no_permute")),
+            "headline_b16_gap_share_closed_by_perq": (
+                (ppl[("no_permute", 16)] - ppl[("perq", 16)])
+                / (ppl[("no_permute", 16)] - full)
+                if ppl[("no_permute", 16)] != full else None),
+        }
+    ppl6 = dict(t6)
+    chain = ["identity", "random", "absmax", "zigzag", "massdiff"]
+    out["table6_identity_random_absmax_zigzag_massdiff"] = {
+        "ppl": [ppl6[m] for m in chain],
+        "holds": all(ppl6[a] > ppl6[b] for a, b in zip(chain[:3], chain[1:4]))
+        and ppl6["zigzag"] >= ppl6["massdiff"]}
+    return out
+
+
+def phase_paper():
+    """The paper's tables on the surrogate trained on the card, then the
+    served example (fake-quant model, f32 pages through the attention
+    kernel)."""
+    from repro_torch.examples import serve_quantized
+    from repro_torch.paper import (common, fig3_delta, fig45_bounds,
+                                   massdiff_speed, table1_blocksize,
+                                   table2_formats, table6_permutations,
+                                   table34_opcounts)
+    secs = {}
+
+    def timed(name, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    bench = timed("bench_model_train_and_cache", common.bench_model,
+                  refresh=True, device="cuda")
+    cfg, model, params, corpus = bench
+    bf16_ppl = timed("bf16_ppl", common.eval_ppl, model, params, corpus)
+    t1 = {r: timed(f"table1_{r}", table1_blocksize.run, r, bench=bench)
+          for r in ("qronos", "rtn")}
+    t6 = timed("table6", table6_permutations.run, bench=bench)
+    t2 = timed("table2", table2_formats.run, bench=bench)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        table34_opcounts.main()
+    t34 = buf.getvalue().splitlines()
+    md_s = massdiff_speed.run()
+    fig3 = timed("fig3", fig3_delta.run, bench)
+    fig45 = timed("fig45", fig45_bounds.run, bench=bench)
+
+    kops.reset_kernel_launch_counts()
+    kops.reset_dispatch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        served = timed("serve_example", serve_quantized.main, device="cuda")
+    launches = kops.kernel_launch_counts()
+    plain = {f"{e}.{p}": n for (e, p), n in kops.dispatch_counts().items()
+             if p == "ref"}
+    done = served["done"]
+    # the same model and requests served by the plain versions (eager, no
+    # graphs): the same greedy tokens for every request
+    with kops.use_kernels(False):
+        plain_done, _ = timed("serve_example_plain", serve_quantized.serve,
+                              served["qmodel"], served["params"])
+    tokens = {r.rid: r.generated for r in done}
+    same_tokens = tokens == {r.rid: r.generated for r in plain_done}
+
+    ppls = [bf16_ppl] + [v for rows in t1.values() for *_, v in rows] \
+        + [v for _, v in t6] + [v for *_, v in t2]
+    problems = []
+    if not all(math.isfinite(v) for v in ppls):
+        problems.append("a perplexity is not finite")
+    if not bf16_ppl < cfg.vocab / 2:
+        problems.append(f"bf16 perplexity {bf16_ppl} is not below "
+                        f"{cfg.vocab / 2}")
+    if not launches["paged_attention"] > 0 or plain:
+        problems.append(f"served example: attention launches "
+                        f"{launches['paged_attention']}, plain {plain}")
+    if len(done) != 6 or any(len(r.generated) != serve_quantized.MAX_NEW
+                             for r in done):
+        problems.append("served example: not every request got "
+                        f"{serve_quantized.MAX_NEW} tokens")
+    if not same_tokens:
+        problems.append("served example: the kernels' tokens differ from "
+                        "the plain versions'")
+    emit("paper", ok=not problems,
+         surrogate="llama3 4 layers, d_model 128, d_ff 256, vocab 512, f32, "
+                   "300 AdamW steps of [16, 64] Markov-Zipf batches, "
+                   "outliers injected", seconds=secs, bf16_ppl=bf16_ppl,
+         uniform_ppl=cfg.vocab, table1_qronos=t1["qronos"],
+         table5_rtn=t1["rtn"], table6=t6, table2=t2,
+         orderings=ordering_flags(t1, t6), table34=t34,
+         massdiff_llama3_8b_host_s=md_s, fig3=fig3, fig45=fig45,
+         served_example={"requests": len(done),
+                         "paged_attention_launches":
+                             launches["paged_attention"],
+                         "plain_dispatches": plain,
+                         "tokens_equal_plain_run": same_tokens,
+                         "lines": buf.getvalue().splitlines()[:1]},
+         problems=problems)
+    if problems:
+        fail(f"paper phase: {problems}")
 
 
 # ---------------------------------------------------------------------------
@@ -1834,7 +2234,8 @@ def phase_build(ptxas: bool):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also break a decode step down with torch.profiler")
+                    help="also break a decode step and a train step down "
+                         "with torch.profiler")
     ap.add_argument("--sweep", action="store_true",
                     help="also time the attention, int4_matmul, block_hadamard "
                          "and hadamard_quant kernels under other plans")
@@ -1856,6 +2257,8 @@ def main(argv=None):
         phase_profile(adapter)
     del adapter
     phase_ptq()
+    phase_train(args.profile)
+    phase_paper()
     print(smi, flush=True)
     print(json.dumps(kernel_record(cases, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import Model, build_model
+from ..tree import tree_map
 from . import massdiff as MD
 from . import rounding as RD
 from .cayley import learn_rotation
@@ -251,12 +252,6 @@ class PTQResult:
     report: dict
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 @torch.no_grad()
 def quantize_model(model: Model, params: Params,
                    calib_batches: list[Params], cfg: PTQConfig) -> PTQResult:
@@ -277,7 +272,7 @@ def quantize_model(model: Model, params: Params,
     gen.manual_seed(cfg.seed)
     report: dict[str, Any] = {"per_layer": []}
 
-    P = _tree_map(lambda a: a.to(torch.float32).clone(), params)
+    P = tree_map(lambda a: a.to(torch.float32).clone(), params)
     L = P["layers"]
     A, F = L["attn"], L["ffn"]
     has_gate = "w_gate" in F
@@ -301,7 +296,7 @@ def quantize_model(model: Model, params: Params,
     # ---- 2. calibrate on the folded model ----------------------------------
     cap = _Capture()
     cap_model = build_model(cfg_a, quant_hooks=cap.hooks())
-    folded = _tree_map(lambda a: a.to(model.pdt), P)
+    folded = tree_map(lambda a: a.to(model.pdt), P)
     for batch in calib_batches:
         cap.reset_forward()
         cap_model.forward(folded, batch)
@@ -393,7 +388,7 @@ def quantize_model(model: Model, params: Params,
     def down_proj_fn(h, w):
         return quantize_act(_apply_r3_online(h, cfg), act_spec) @ w
 
-    qparams = _tree_map(lambda a: a.to(model.pdt), P)
+    qparams = tree_map(lambda a: a.to(model.pdt), P)
     return PTQResult(params=qparams,
                      hooks={"act_in": act_in, "down_proj_fn": down_proj_fn},
                      config=cfg, report=report)

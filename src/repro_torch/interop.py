@@ -68,3 +68,13 @@ def cache_from_jax(numpy_cache: Params, device="cuda") -> Params:
     layout (`[n_layers, batch, max_len, ...]` leaves) -> tensors on
     `device`. The port updates the result in place."""
     return tree_from_numpy(numpy_cache, device)
+
+
+def opt_state_from_jax(numpy_state: Params, device="cuda") -> Params:
+    """The JAX package's AdamW state (`{"step", "m", "v"}`, as numpy
+    arrays) -> the port's: the int32 step count and the moment trees as
+    tensors on `device`, dtypes preserved."""
+    return {"step": tensor_from_numpy(
+                np.asarray(numpy_state["step"], np.int32), device),
+            "m": tree_from_numpy(numpy_state["m"], device),
+            "v": tree_from_numpy(numpy_state["v"], device)}

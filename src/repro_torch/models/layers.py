@@ -285,6 +285,16 @@ def layer_view(tree: Params, i: int) -> Params:
             for k, v in tree.items()}
 
 
+def unstack(tree: Params, n: int) -> list[Params]:
+    """The views of every layer at once (`torch.unbind` per leaf). Their
+    gradients meet in the stacked leaf through one stack per leaf, where
+    `n` separate `layer_view`s would each scatter into a zero-filled copy
+    of the whole leaf."""
+    flat = {k: (unstack(v, n) if isinstance(v, dict) else torch.unbind(v))
+            for k, v in tree.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Seeded initialisation
 # ---------------------------------------------------------------------------

@@ -16,13 +16,20 @@ walks it through `kernels.ops.paged_attention`; a decode step's positions
 are computed on the device from its [B] index, so the step reads nothing
 back to the host and can be captured in a CUDA graph.
 
+`loss_fn` and `train_forward` are the training path: they carry
+gradients, and `remat=True` recomputes each layer in the backward
+(`torch.utils.checkpoint`). The inference entry points (`forward`,
+`prefill`, `forward_chunk`) run under `torch.no_grad()`.
+
 The MoE, SSM and hybrid families are ROADMAP Queue A10.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from . import layers as L
 from .config import ArchConfig
@@ -30,6 +37,19 @@ from .config import ArchConfig
 Params = dict[str, Any]
 
 FRONTEND_DIMS = {"audio_frames": 512, "vision_patches": 1024}
+
+# the matmuls of `x @ w` (2-D products once the batch is folded); the
+# attention's batched einsums are not among them, as in the reference's
+# `dots_with_no_batch_dims_saveable`
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT_POLICIES = ("nothing", "dots")
 
 
 def _stack(nodes: list):
@@ -41,7 +61,8 @@ def _stack(nodes: list):
 class Model:
     """Functional model wrapper for one ArchConfig (dense, vlm, encoder)."""
 
-    def __init__(self, cfg: ArchConfig, *, quant_hooks=None):
+    def __init__(self, cfg: ArchConfig, *, quant_hooks=None,
+                 remat_policy: str = "nothing"):
         self.cfg = cfg.validate()
         if cfg.family not in ("dense", "vlm", "encoder") or cfg.uses_moe:
             raise NotImplementedError(
@@ -51,6 +72,13 @@ class Model:
         self.cdt = L.DTYPES[cfg.compute_dtype]
         # {"act_in": fn(x, tag) -> x, "down_proj_fn": fn(h, w) -> out}
         self.quant_hooks = quant_hooks or {}
+        # what a remat'd layer keeps for its backward: "nothing" keeps its
+        # input alone and recomputes the rest, "dots" also keeps the
+        # outputs of its weight matmuls (more memory, less recompute)
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                             f"got {remat_policy!r}")
+        self.remat_policy = remat_policy
         self.attn_spec = L.AttnSpec(
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, causal=cfg.causal,
@@ -102,14 +130,29 @@ class Model:
         return x + h
 
     def _run_layers(self, params: Params, x, *, caches=None,
-                    cache_index=None, block_table=None, seq_lengths=None):
-        for i in range(self.cfg.n_layers):
-            x = self._apply_block(
-                x, L.layer_view(params["layers"], i),
-                None if caches is None else L.layer_view(caches, i),
-                cache_index,
-                block_table=block_table, seq_lengths=seq_lengths)
+                    cache_index=None, block_table=None, seq_lengths=None,
+                    remat: bool = False):
+        """Every layer in turn over the views of its params and caches (the
+        caches' views write into the stacked pools); with `remat` (no
+        caches) each layer is checkpointed."""
+        n = self.cfg.n_layers
+        views = [None] * n if caches is None else L.unstack(caches, n)
+        for blk, cache in zip(L.unstack(params["layers"], n), views):
+            if remat:
+                x = ckpt.checkpoint(self._apply_block, x, blk, None, None,
+                                    use_reentrant=False,
+                                    **self._remat_context())
+            else:
+                x = self._apply_block(x, blk, cache, cache_index,
+                                      block_table=block_table,
+                                      seq_lengths=seq_lengths)
         return x
+
+    def _remat_context(self) -> dict:
+        if self.remat_policy == "dots":
+            return {"context_fn": functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots)}
+        return {}
 
     def _head(self, params: Params, x):
         x = L.apply_norm(x, params["final_norm"], self.cfg.norm)
@@ -139,8 +182,36 @@ class Model:
         """Full-sequence forward -> logits [B, S, vocab]. The layer stack
         is a Python loop, so capture hooks see every layer in turn (the
         reference's `unroll=True`)."""
+        return self.train_forward(params, batch)
+
+    def train_forward(self, params: Params, batch: Params, *,
+                      remat: bool = False) -> torch.Tensor:
+        """`forward` carrying gradients to every parameter that requires
+        them; `remat=True` checkpoints each layer."""
         x = self._embed_inputs(params, batch)
-        return self._head(params, self._run_layers(params, x))
+        return self._head(params, self._run_layers(params, x, remat=remat))
+
+    def loss_fn(self, params: Params, batch: Params, *,
+                remat: bool = False):
+        """Mean next-token (or frame-label) cross-entropy + 1e-4 z-loss
+        over the positions whose label is >= 0. Returns (loss, {"nll",
+        "zloss", "tokens"})."""
+        logits = self.train_forward(params, batch,
+                                    remat=remat).to(torch.float32)
+        labels = batch["labels"]
+        if self.cfg.frontend == "vision_patches":
+            # labels cover text positions only (after the patch prefix)
+            logits = logits[:, -labels.shape[1]:]
+        mask = (labels >= 0).to(torch.float32)
+        labels = torch.clamp_min(labels, 0).to(torch.int64)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = (lse - gold) * mask
+        tokens = torch.sum(mask)
+        denom = torch.clamp_min(tokens, 1.0)
+        loss = torch.sum(nll) / denom
+        zloss = 1e-4 * torch.sum((lse * mask) ** 2) / denom
+        return loss + zloss, {"nll": loss, "zloss": zloss, "tokens": tokens}
 
     # ------------------------------------------------------------------
     # Serving

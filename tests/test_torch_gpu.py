@@ -1036,3 +1036,73 @@ def test_bf16_model_decode_graphed_bit_equal_to_eager(dev):
         assert got[rid].generated == r.generated
         for g, w in zip(got[rid].step_logits, r.step_logits):
             assert np.array_equal(g, w)
+
+
+def _train_inputs(device):
+    """The reduced llama3 (f32) from one CPU seed, its AdamW state and one
+    numpy batch, on `device`."""
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+    cfg = get_config("llama3-1b").reduced()
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (8, 32)).astype(
+        np.int32)).to(device) for k in ("tokens", "labels")}
+    params = tree_map(lambda t: t.to(device), params)
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=60)
+    return cfg, params, adamw.init_state(opt_cfg, params), batch, opt_cfg
+
+
+@pytest.mark.parametrize("n_micro,remat", [(1, False), (2, True)])
+def test_train_step_on_the_card_matches_the_cpu(dev, n_micro, remat):
+    """One train step on the card against the same step on the CPU from the
+    same state (f32): loss and grad norm rel 1e-5, gradients within 1e-4 of
+    each leaf's largest; updated params within 1e-5 of each leaf's largest
+    where the gradient is above 1e-3 of the leaf's largest or exactly zero,
+    and within AdamW's own bound (4·lr) where it is cancellation noise
+    (there lr·g/(|g| + eps) takes any value in [-lr, lr])."""
+    from repro_torch.train.step import TrainConfig, make_train_step
+    from repro_torch.tree import leaves, unflatten
+    out = {}
+    for device in ("cpu", dev):
+        cfg, params, opt, batch, opt_cfg = _train_inputs(device)
+        model = build_model(cfg)
+        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+        loss, _ = model.loss_fn(unflatten(params, flat), batch)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, flat)]
+        step = make_train_step(model, opt_cfg,
+                               TrainConfig(num_microbatches=n_micro,
+                                           remat=remat))
+        p1, o1, m = step(params, opt, batch)
+        out[str(device)] = (grads, [t.cpu() for t in leaves(p1)],
+                            {k: float(v) for k, v in m.items()})
+    (g_cpu, p_cpu, m_cpu), (g_card, p_card, m_card) = out["cpu"], out[str(dev)]
+    for k in ("loss", "grad_norm", "lr"):
+        assert abs(m_card[k] - m_cpu[k]) <= 1e-5 * abs(m_cpu[k])
+    lr = m_cpu["lr"]
+    for gc, gg, pc, pg in zip(g_cpu, g_card, p_cpu, p_card):
+        top = float(gc.abs().max())
+        assert float((gg - gc).abs().max()) <= 1e-4 * max(top, 1e-30)
+        cond = (gc.abs() >= 1e-3 * top) | (gc == 0)
+        diff = (pg - pc).abs()
+        assert float(diff[cond].max()) <= 1e-5 * float(pc.abs().max())
+        assert float(diff.max()) <= 4 * lr
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_round_trip_of_card_tensors(dev, tmp_path, dtype):
+    from repro_torch.checkpoint.manager import CheckpointManager
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn(3, 5, generator=g, device="cuda").to(dtype),
+            "opt": {"step": torch.tensor(4, dtype=torch.int32, device="cuda")}}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, tree)
+    mgr.wait()
+    like = {"w": torch.zeros(3, 5, dtype=dtype, device="cuda"),
+            "opt": {"step": torch.zeros((), dtype=torch.int32, device="cuda")}}
+    got = mgr.restore(target=like)
+    assert got["w"].device.type == "cuda" and got["w"].dtype == dtype
+    bits = (lambda t: t.view(torch.int16)) if dtype == torch.bfloat16 \
+        else (lambda t: t)
+    assert torch.equal(bits(got["w"]), bits(tree["w"]))
+    assert int(got["opt"]["step"]) == 4
