@@ -19,7 +19,9 @@ on all three paths. Phases print one JSON line each:
     build    seconds nvcc took
     kernels  per kernel: error against the plain version, times, bound; the
              split merge (the reference's `_combine_kernel`) inside the
-             attention launch, bit-equal over 20 launches
+             attention launch, bit-equal over 20 launches; attention also at
+             the MoE and hybrid families' widths (16 heads of 128, 32 of 64,
+             one query head per KV head, f32 pages)
     serve    the launcher at full width and depth, plain and observed, then
              two short runs
     parity   one prefill chunk and one decode step, kernels vs plain, and
@@ -58,6 +60,18 @@ on all three paths. Phases print one JSON line each:
              give the same loss, and an async checkpoint of the trained
              params must restore bit for bit; with --profile one more step
              under torch.profiler (device-busy ms, idle share, kernels)
+    families the MoE, SSM and hybrid families through the launcher, decode
+             graphed: mamba2-1.3b and zamba2-1.2b at full size (--no-quant,
+             then the default perq_star), deepseek-moe-16b at full width
+             (4 layers rtn_only, 1 layer perq_star); per run tokens/s, ms
+             per engine step, peak memory, register MiB per slot, PTQ
+             seconds and the fake-quant logit MSE against bf16; graphed
+             decode against eager bit for bit with the attention launches
+             of a pure decode step; on an f32 twin the kernels' whole-model
+             logits against the plain versions from one state (zamba2,
+             deepseek-moe), mamba2's chunked prefill against one token at a
+             time, and zamba2's preemption and replay over register slots
+             against a reserve run
     paper    the paper's tables on the surrogate trained on the card
              (`repro_torch.paper`): bf16 perplexity, Tables 1 (Qronos) and
              5 (RTN) at b = 8..256 with full-vector, Table 6, Table 2,
@@ -608,6 +622,17 @@ def phase_kernels():
         cases["paged_attention"].append(check_attention(
             rng, label, "f32", b, s, lens, n_cols, theta, q_dtype=torch.float32,
             **ex))
+    # the MoE and hybrid families' widths over f32 pages (the fake-quant
+    # Model's path, one query head per KV head): deepseek-moe-16b's 16 heads
+    # of 128 and zamba2-1.2b's shared block's 32 heads of 64, with f32
+    # queries (phase families' f32 twin) and bf16 ones (the served models)
+    for h, dh in ((16, 128), (32, 64)):
+        for qdt in (torch.float32, torch.bfloat16):
+            for label, b, s, lens in (("families decode", 4, 1, [120, 0, 37, 113]),
+                                      ("families prefill", 1, 32, [128])):
+                cases["paged_attention"].append(check_attention(
+                    rng, label, "f32", b, s, lens, 8, theta, h=h, kh=h, dh=dh,
+                    q_dtype=qdt))
     # the split merge in the kernel's last-arriving block (the reference's
     # `_combine_kernel`): explicit 2 and 8 splits over 8 columns and 13 over
     # 16 (splits 8-12 past the table), dead splits and a row of length 0
@@ -1813,6 +1838,331 @@ def phase_ptq():
 
 
 # ---------------------------------------------------------------------------
+# phase: families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARGS = ["--slots", "4", "--page-size", "16", "--prefill-chunk", "32",
+               "--max-len", "512", "--device", "cuda"]
+FAMILY_SERVE = ["--requests", "8", "--max-new", "16", "--prompt-len",
+                "48-158"]
+# (label, arch, launcher args, the checks run on the run's adapter);
+# deepseek-moe-16b at full width, its depth cut to 4 layers (rtn_only) and
+# to 1 (perq_star: GPTQ/Qronos over 64 experts x 3 weights a layer)
+FAMILY_RUNS = (
+    ("mamba2-1.3b, bf16 (--no-quant)", "mamba2-1.3b", ["--no-quant"],
+     ("graph", "chunked")),
+    ("mamba2-1.3b, fake-quant perq_star (the default)", "mamba2-1.3b", [],
+     ("graph",)),
+    ("zamba2-1.2b, bf16 (--no-quant)", "zamba2-1.2b", ["--no-quant"],
+     ("graph", "parity", "replay")),
+    ("zamba2-1.2b, fake-quant perq_star (the default)", "zamba2-1.2b", [],
+     ("graph",)),
+    ("deepseek-moe-16b, 4 layers, fake-quant rtn_only", "deepseek-moe-16b",
+     ["--layers", "4", "--preset", "rtn_only"], ("graph", "parity")),
+    ("deepseek-moe-16b, 1 layer, fake-quant perq_star (the default)",
+     "deepseek-moe-16b", ["--layers", "1"], ("graph",)),
+)
+
+
+class PTQProbe:
+    """Wraps `core.pipeline.quantize_model` for one launcher run: its
+    seconds and peak device memory, and the fake-quant model's logit MSE
+    against the bf16 model on a held-out [2, 64] batch. The peak memory
+    statistic restarts after it, so the launcher record's peak is the
+    serving one."""
+
+    def __init__(self):
+        from repro_torch.core import pipeline as PL
+        self.PL, self.real, self.rec = PL, PL.quantize_model, None
+
+    def __enter__(self):
+        def timed(model, params, calib, cfg):
+            held = {"tokens": torch.from_numpy(np.random.default_rng(2).integers(
+                0, model.cfg.vocab, (2, 64))).to(DEV)}
+            want = model.forward(params, held).float()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = self.real(model, params, calib, cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            got = self.PL.build_quantized_model(model, res).forward(
+                res.params, held).float()
+            self.rec = {"ptq_seconds": secs, "ptq_peak_device_memory_gib": peak,
+                        "logit_mse_vs_bf16": float(((got - want) ** 2).mean()),
+                        "logits_finite": bool(torch.isfinite(got).all()),
+                        "held_out": "[2, 64] tokens"}
+            del want, got
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return res
+        self.PL.quantize_model = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.PL.quantize_model = self.real
+
+
+def _family_prompts(vocab, lens, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).tolist() for n in lens]
+
+
+def _family_serve(adapter, prompts, max_new=16, **engine_kw):
+    """Serve `prompts` greedily on a fresh engine (4 slots, pages of 16,
+    chunks of 32) with the books checked every step; returns (engine,
+    requests by rid, the counts of the whole run, the counts of the first
+    step with every sequence decoding)."""
+    from repro_torch.serve.engine import (EngineRequest, SamplingParams,
+                                          ServeEngine)
+    kw = dict(n_pages=4 * 12 + 1, page_size=16, max_seqs=4,
+              prefill_chunk=32, record_logits=True)
+    kw.update(engine_kw)
+    engine = ServeEngine(adapter, **kw)
+    for rid, p in enumerate(prompts):
+        engine.submit(EngineRequest(rid=rid, prompt=p,
+                                    sampling=SamplingParams(max_new=max_new)))
+    kops.reset_kernel_launch_counts()
+    kops.reset_dispatch_counts()
+    done, per_step = [], None
+    while engine.queue or engine.active:
+        pure = not engine.queue and not engine.prefilling and engine.decoding
+        before = kops.count_snapshot()
+        done.extend(engine.step())
+        if pure and per_step is None:
+            per_step = kops.counts_since(before)
+        engine.check_books()
+    torch.cuda.synchronize()
+    return engine, {r.rid: r for r in done}, kops.count_snapshot(), per_step
+
+
+def _slots_clean(engine) -> bool:
+    regs = engine.kv.registers
+    return regs is not None and regs.in_use == 0 and not engine.kv.slots \
+        and all(float(leaf[:, 1:].abs().max()) == 0.0
+                for leaf in engine.kv._reg_leaves)
+
+
+def family_graph(adapter, attn_per_step):
+    """The same 4 requests served with decode graphed and eagerly: tokens
+    and every step's logits bit-equal, counts equal, `attn_per_step`
+    attention launches in a pure decode step, no plain dispatch."""
+    prompts = _family_prompts(adapter.cfg.vocab, (70, 90, 33, 60), 4)
+    _, want, c_eager, _ = _family_serve(adapter, prompts, max_new=24,
+                                        eager=True)
+    engine, got, c_graph, per_step = _family_serve(adapter, prompts,
+                                                   max_new=24)
+    steps = [(g, w) for r in want
+             for g, w in zip(got[r].step_logits, want[r].step_logits)]
+    unequal = sum(not np.array_equal(g, w) for g, w in steps)
+    plain = {e: n for (e, path), n in c_graph[1].items() if path == "ref"}
+    step_attn = (per_step or ({}, {}))[0].get("paged_attention", 0)
+    rec = {"tokens_equal": all(got[r].generated == want[r].generated
+                               for r in want),
+           "logits_rows": len(steps), "logits_rows_unequal": unequal,
+           "counts_equal": c_graph == c_eager,
+           "graphs": engine.graph_stats()["graphs"],
+           "attention_launches_per_decode_step": step_attn,
+           "attention_launches_expected": attn_per_step,
+           "plain_dispatches": plain,
+           "register_slots_clean": (_slots_clean(engine)
+                                    if engine.spec.register else None)}
+    rec["ok"] = (rec["tokens_equal"] and not unequal and rec["counts_equal"]
+                 and rec["graphs"] >= 1 and per_step is not None
+                 and step_attn == attn_per_step and not plain
+                 and rec["register_slots_clean"] is not False)
+    return rec
+
+
+def _f32_twin(adapter):
+    """The served model's plain f32 twin (no PTQ hooks) over f32 copies of
+    its parameters, as an engine adapter with f32 pages and registers. MoE
+    evaluates every expert (`moe_dense_oracle`): capacity drops depend on
+    the chunk's length, so chunked and whole-sequence runs would route
+    differently."""
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serve.engine import as_servable
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(adapter.cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    return as_servable(build_model(cfg, moe_dense_oracle=cfg.uses_moe),
+                       tree_map(lambda t: t.float(), adapter.params))
+
+
+def family_parity(adapter):
+    """Whole-model logits with the attention kernel against
+    `use_kernels(False)` from one state, on the f32 twin: a 32-token and a
+    15-token prefill chunk of 2 sequences, then one per-slot decode step,
+    each from a copy of the same state; and the kernels' run against
+    `Model.forward` over the whole sequence. Bound: MODEL_F32_FRAC of
+    max|logit| (phase ptq's, for the dense Model's f32 pages)."""
+    from repro_torch.tree import tree_map
+    twin = _f32_twin(adapter)
+    model, params = twin.model, twin.params
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab, (2, 48))).to(DEV)
+    bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32,
+                      device=DEV)
+    reg = torch.tensor([1, 2], dtype=torch.int32, device=DEV) \
+        if twin.spec.register else None
+    state = twin.init_state(9, 16, 3)
+    kops.reset_kernel_launch_counts()
+    errs, got = [], []
+    for start, stop, index in ((0, 32, 0), (32, 47, 32),
+                               (47, 48, torch.tensor([47, 47], dtype=torch.int32,
+                                                     device=DEV))):
+        chunk = toks[:, start:stop]
+        lens = torch.full((2,), stop, dtype=torch.int32, device=DEV)
+        copy = tree_map(torch.clone, state)
+        with kops.use_kernels(False):
+            plain, _ = twin.forward_chunk(params, chunk, copy, index, bt, lens,
+                                          reg)
+        logits, _ = twin.forward_chunk(params, chunk, state, index, bt, lens,
+                                       reg)
+        errs.append(float((logits - plain).abs().max() / plain.abs().max()))
+        got.append(logits)
+    launches = kops.kernel_launch_counts()["paged_attention"]
+    want = model.forward(params, {"tokens": toks})
+    got = torch.cat(got, dim=1)
+    n_attn = model.cfg.n_layers if model.cfg.family == "moe" \
+        else model._hybrid_groups()[0]
+    rec = {"steps": ["prefill 0-32", "prefill 32-47", "decode 47"],
+           "kernel_vs_plain_same_state_of_max_logit": errs,
+           "kernel_vs_forward_of_max_logit": float(
+               (got - want).abs().max() / want.abs().max()),
+           "argmax_agree_kernel_vs_forward": float(
+               (got.argmax(-1) == want.argmax(-1)).float().mean()),
+           "attention_launches": launches, "bound": MODEL_F32_FRAC,
+           "finite": bool(torch.isfinite(got).all())}
+    rec["ok"] = (rec["finite"] and launches == 3 * n_attn
+                 and max(errs) <= MODEL_F32_FRAC
+                 and rec["kernel_vs_forward_of_max_logit"] <= MODEL_F32_FRAC)
+    del twin, params, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_chunked(adapter):
+    """mamba2: chunked prefill (32 tokens a chunk, the SSD scan) against
+    prefill one token at a time (the recurrent step) on the f32 twin, 2
+    requests: the same tokens, or a first difference at a near tie
+    (`first_divergence`)."""
+    twin = _f32_twin(adapter)
+    prompts = _family_prompts(adapter.cfg.vocab, (75, 50), 5)
+    _, chunked, _, _ = _family_serve(twin, prompts, max_new=8)
+    _, stepwise, _, _ = _family_serve(twin, prompts, max_new=8,
+                                      prefill_chunk=1)
+    divs = [d for d in (first_divergence(chunked[r], stepwise[r])
+                        for r in chunked) if d is not None]
+    first_err = max(float(np.abs(chunked[r].step_logits[0]
+                                 - stepwise[r].step_logits[0]).max()
+                          / np.abs(stepwise[r].step_logits[0]).max())
+                    for r in chunked)
+    del twin
+    torch.cuda.empty_cache()
+    return {"tokens_equal": sum(chunked[r].generated == stepwise[r].generated
+                                for r in chunked), "requests": len(chunked),
+            "first_token_logits_diff_of_max": first_err,
+            "divergences": divs, "ok": all(d["ok"] for d in divs)}
+
+
+# 24 pages: the first three prompts fill them, so the first page growth
+# preempts (the four need 34 at worst, 70 % more)
+REPLAY_PAGES = 4 * 6 + 1
+
+
+def family_replay(adapter):
+    """zamba2: optimistic admission on a short pool preempts; the victims'
+    register slots are scrubbed with their pages and the replays
+    re-prefill over fresh slots. On the f32 twin (the replay's chunked SSD
+    against the undisturbed run's recurrent steps: in bf16 the conv taps
+    round differently and 38 random layers amplify it past any near tie),
+    tokens against a reserve run, as phase robust holds them
+    (`first_divergence`)."""
+    twin = _f32_twin(adapter)
+    prompts = _family_prompts(adapter.cfg.vocab, (120, 100, 140, 90), 6)
+    _, base, _, _ = _family_serve(twin, prompts, admission="reserve")
+    short, got, _, _ = _family_serve(twin, prompts, n_pages=REPLAY_PAGES,
+                                     admission="optimistic", headroom_pages=0)
+    divs = [d for d in (first_divergence(got[r], base[r]) for r in got)
+            if d is not None]
+    pre = short.metrics.counter("engine.preemptions").value
+    rec = {"n_pages": REPLAY_PAGES, "preemptions": pre,
+           "replayed_prefill_tokens": short.metrics.counter(
+               "engine.replayed_prefill_tokens").value,
+           "slots_scrubbed": short.kv.slots_scrubbed,
+           "tokens_equal_to_reserve": sum(got[r].generated == base[r].generated
+                                          for r in got),
+           "divergences": divs,
+           "register_slots_clean": _slots_clean(short)}
+    rec["ok"] = (pre >= 1 and all(r.outcome == "length" for r in got.values())
+                 and all(d["ok"] for d in divs) and rec["register_slots_clean"]
+                 and short.kv.slots_scrubbed >= len(prompts) + pre)
+    del twin, short
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_families():
+    """The MoE, SSM and hybrid families through the launcher on the card:
+    mamba2-1.3b and zamba2-1.2b at full size, deepseek-moe-16b at full
+    width (4 and 1 layers), each `--no-quant` or through
+    `quantize_model`, decode graphed; then on each run's adapter the
+    checks `FAMILY_RUNS` names."""
+    from repro_torch.tree import leaves as tree_leaves
+    runs, problems = [], []
+    for label, arch, extra, checks in FAMILY_RUNS:
+        expect = () if arch.startswith("mamba2") else ("paged_attention",)
+        torch.cuda.reset_peak_memory_stats()
+        probe = PTQProbe()
+        with probe:
+            result, rec = run_launcher(label, extra + FAMILY_SERVE,
+                                       expect=expect,
+                                       base=["--arch", arch] + FAMILY_ARGS)
+        engine = result["engine"]
+        adapter, cfg = engine.adapter, engine.adapter.cfg
+        rec.update(probe.rec or {})
+        rec["model"] = (f"{cfg.name}: {cfg.n_layers} layers, d_model "
+                        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.param_dtype}")
+        rec["params_billion"] = sum(
+            t.numel() for t in tree_leaves(adapter.params)) / 1e9
+        rec["register_mib_per_slot"] = engine.kv.slot_bytes / 2 ** 20
+        rec["register_slots_clean"] = (_slots_clean(engine)
+                                       if engine.spec.register else None)
+        if rec["register_slots_clean"] is False:
+            rec["problems"].append("register slots left in use or unscrubbed")
+        if probe.rec is not None and not probe.rec["logits_finite"]:
+            rec["problems"].append("fake-quant logits not finite")
+        del result, engine
+        attn = {"ssm": 0, "hybrid": adapter.model._hybrid_groups()[0]}.get(
+            cfg.family, cfg.n_layers)
+        for check in checks:
+            t0 = time.perf_counter()
+            out = {"graph": lambda: family_graph(adapter, attn),
+                   "parity": lambda: family_parity(adapter),
+                   "chunked": lambda: family_chunked(adapter),
+                   "replay": lambda: family_replay(adapter)}[check]()
+            out["seconds"] = time.perf_counter() - t0
+            rec[check] = out
+            if not out["ok"]:
+                rec["problems"].append(f"{check}: {out}")
+        rec["ok"] = not rec["problems"]
+        del adapter
+        torch.cuda.empty_cache()
+        runs.append(rec)
+        problems += [f"{label}: {p}" for p in rec["problems"]]
+    emit("families", ok=not problems, runs=runs, problems=problems,
+         tolerance=f"graphed decode bit-equal to eager; kernel vs plain and vs "
+                   f"Model.forward {MODEL_F32_FRAC} of max|logit| on the f32 "
+                   "twin; replay and chunked tokens as phase robust "
+                   f"({REPLAY_FRAC} of max|logit| at a first difference, a "
+                   "near tie)")
+    if problems:
+        fail(f"families phase: {problems}")
+
+
+# ---------------------------------------------------------------------------
 # phase: train
 # ---------------------------------------------------------------------------
 
@@ -2257,6 +2607,7 @@ def main(argv=None):
         phase_profile(adapter)
     del adapter
     phase_ptq()
+    phase_families()
     phase_train(args.profile)
     phase_paper()
     print(smi, flush=True)

@@ -16,7 +16,7 @@ import torch
 def inject_outlier_channels(params, *, strength: float = 8.0,
                             strength2: float = 5.0, seed: int = 0,
                             hidden_strength: float = 16.0):
-    """Create LLM-like activation outliers in a dense model's parameter tree
+    """Create LLM-like activation outliers in a model's parameter tree
     (layer leaves stacked `[n_layers, ...]`), **in place**; returns `params`.
 
     Two mechanisms:
@@ -57,10 +57,21 @@ def inject_outlier_channels(params, *, strength: float = 8.0,
                            / sc[:, None]).to(down.dtype)
 
     layers = params["layers"]
-    for nm in ("attn_norm", "ffn_norm"):
+    for nm in ("attn_norm", "ffn_norm", "norm"):
         if nm in layers:
             scale_vec(layers[nm]["scale"])
     if "ffn" in layers:
         reparam_ffn(layers["ffn"])
+    if "moe" in layers:
+        moe = layers["moe"]
+        reparam_ffn(moe)
+        if "shared_up" in moe:
+            reparam_ffn({"w_up": moe["shared_up"],
+                         "w_down": moe["shared_down"]})
+    if "shared_attn" in params:
+        shared = params["shared_attn"]
+        for nm in ("attn_norm", "ffn_norm"):
+            scale_vec(shared[nm]["scale"])
+        reparam_ffn(shared["ffn"])
     scale_vec(params["final_norm"]["scale"])
     return params

@@ -16,7 +16,11 @@ f32 KV pages), the bf16 model (`--no-quant`), and the packed-int4 integer
 path (`--integer-path`, dense archs, optional `--kv-bits {4,8}` integer KV
 pages), which packs the PTQ result. `--legacy-scheduler` serves the bf16 or
 fake-quant model through the dense-slot `serve.step.BatchScheduler`
-instead. The MoE, SSM and hybrid families are ROADMAP Queue A10.
+instead (attention-cache families only, as the reference). Every
+decode-capable token-LM family serves: dense, MoE (its routed experts
+ride inside the forward), SSM (Mamba2: fixed-size register slots, no kv
+pages) and hybrid (Zamba2: register slots and the shared attention block's
+kv pages). `--layers N` cuts the depth.
 
 The engine options are the JAX launcher's: `--admission` (`optimistic`, the
 default, or `reserve`), `--deadline-s`, `--prefix-cache` /
@@ -175,14 +179,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse(args, cfg):
     """Exit with one line for a combination the launcher does not serve:
-    the reference's refusals, and the families that are ROADMAP Queue
-    A10."""
+    the reference's refusals."""
     if args.probe_every and not args.integer_path:
         raise SystemExit("--probe-every needs --integer-path: the probes "
                          "read the fused rotate+quantize site")
-    if cfg.family in ("moe", "ssm", "hybrid") or cfg.uses_moe:
-        raise SystemExit(f"not ported yet: {cfg.name} is family "
-                         f"{cfg.family!r}, ROADMAP Queue A10")
     if args.integer_path and cfg.family not in ("dense", "vlm"):
         raise SystemExit(f"--integer-path packs dense projections only; "
                          f"{cfg.name} is family {cfg.family!r}")

@@ -1,4 +1,6 @@
-"""The bf16 / fake-quant model of the dense, vlm and encoder families.
+"""The bf16 / fake-quant model of every family: dense, vlm, encoder, MoE,
+SSM (Mamba2) and hybrid (Zamba2: Mamba2 layers and one shared attention +
+FFN block after every `hybrid_period` of them).
 
 Parameters are plain dict trees with per-layer leaves stacked on axis 0
 (`[n_layers, ...]`), the JAX package's layout, so the PTQ pipeline walks and
@@ -6,13 +8,16 @@ merges the same tree and parameters cross between the packages leaf for
 leaf. The layer stack runs as a Python loop over views of each layer.
 
 `quant_hooks` is the PTQ seam, as in the reference: `act_in(x, tag)` on
-every projection input (tags `qkv`, `wo`, `ffn`) and `down_proj_fn(h, w)`
-in place of the FFN's last projection. The calibration installs capture
-hooks, the fake-quant model quantising ones.
+every projection input (tags `qkv`, `wo`, `ffn`, `expert_in`, `ssm_in`),
+`down_proj_fn(h, w)` in place of the FFN's (and the shared experts') last
+projection, `moe_down_proj_fn(h, w)` of the routed experts' and
+`ssm_out_proj_fn(y, w)` of the Mamba2 block's. The calibration installs
+capture hooks, the fake-quant model quantising ones.
 
 Caches are updated **in place** (the JAX counterpart returns new arrays).
 With a block table the kv leaves are the engine's page pool and attention
-walks it through `kernels.ops.paged_attention`; a decode step's positions
+walks it through `kernels.ops.paged_attention`; with a register index the
+SSM leaves are the engine's register slot pools. A decode step's positions
 are computed on the device from its [B] index, so the step reads nothing
 back to the host and can be captured in a CUDA graph.
 
@@ -20,8 +25,6 @@ back to the host and can be captured in a CUDA graph.
 gradients, and `remat=True` recomputes each layer in the backward
 (`torch.utils.checkpoint`). The inference entry points (`forward`,
 `prefill`, `forward_chunk`) run under `torch.no_grad()`.
-
-The MoE, SSM and hybrid families are ROADMAP Queue A10.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from . import layers as L
+from . import moe as M
+from . import ssm as S
 from .config import ArchConfig
 
 Params = dict[str, Any]
@@ -59,19 +64,22 @@ def _stack(nodes: list):
 
 
 class Model:
-    """Functional model wrapper for one ArchConfig (dense, vlm, encoder)."""
+    """Functional model wrapper for one ArchConfig."""
 
     def __init__(self, cfg: ArchConfig, *, quant_hooks=None,
-                 remat_policy: str = "nothing"):
+                 remat_policy: str = "nothing",
+                 moe_dense_oracle: bool = False):
         self.cfg = cfg.validate()
-        if cfg.family not in ("dense", "vlm", "encoder") or cfg.uses_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family's model is ROADMAP "
-                "Queue A10 (MoE, SSM and hybrid are not ported yet)")
         self.pdt = L.DTYPES[cfg.param_dtype]
         self.cdt = L.DTYPES[cfg.compute_dtype]
-        # {"act_in": fn(x, tag) -> x, "down_proj_fn": fn(h, w) -> out}
+        # {"act_in": fn(x, tag) -> x, "down_proj_fn": fn(h, w) -> out,
+        #  "moe_down_proj_fn": ..., "ssm_out_proj_fn": ...}
         self.quant_hooks = quant_hooks or {}
+        # route MoE FFNs through the evaluate-all-experts oracle
+        # (per-token exact, chunking-invariant) instead of the capacity-
+        # bounded dispatch: parity tests only, where chunk-length-dependent
+        # capacity drops would break chunked == whole-prompt comparisons
+        self.moe_dense_oracle = moe_dense_oracle
         # what a remat'd layer keeps for its backward: "nothing" keeps its
         # input alone and recomputes the rest, "dots" also keeps the
         # outputs of its weight matmuls (more memory, less recompute)
@@ -79,14 +87,47 @@ class Model:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
                              f"got {remat_policy!r}")
         self.remat_policy = remat_policy
-        self.attn_spec = L.AttnSpec(
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, causal=cfg.causal,
-            rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias)
+        if cfg.n_heads:
+            self.attn_spec = L.AttnSpec(
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim, causal=cfg.causal,
+                rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias)
 
     # ------------------------------------------------------------------
     # Init
     # ------------------------------------------------------------------
+
+    def _init_block(self, gen: torch.Generator) -> Params:
+        cfg, dt, dev = self.cfg, self.pdt, gen.device
+        if cfg.family in ("ssm", "hybrid"):
+            return {"norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
+                    "ssm": S.init_ssm(gen, cfg.d_model, expand=cfg.ssm_expand,
+                                      head_dim=cfg.ssm_head_dim,
+                                      state=cfg.ssm_state,
+                                      conv_width=cfg.ssm_conv_width,
+                                      dtype=dt)}
+        blk = {
+            "attn_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
+            "attn": L.init_attention(gen, cfg.d_model, self.attn_spec, dt),
+            "ffn_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
+        }
+        if cfg.uses_moe:
+            blk["moe"] = M.init_moe(gen, cfg.d_model, cfg.n_experts,
+                                    cfg.moe_d_ff, cfg.n_shared_experts,
+                                    cfg.act, dt)
+        else:
+            blk["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt)
+        return blk
+
+    def _shared_attn_block(self, gen: torch.Generator) -> Params:
+        """Hybrid (Zamba2): the one shared attention + FFN block."""
+        cfg, dt, dev = self.cfg, self.pdt, gen.device
+        return {
+            "attn_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
+            "attn": L.init_attention(gen, cfg.d_model, self.attn_spec, dt),
+            "ffn_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
+            "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt),
+        }
 
     def init(self, gen: torch.Generator) -> Params:
         """Fresh parameters drawn from `gen`, on its device."""
@@ -94,12 +135,10 @@ class Model:
         p: Params = {}
         if cfg.frontend != "audio_frames":
             p["embed"] = L._normal(gen, (cfg.vocab, cfg.d_model), 0.02, dt)
-        p["layers"] = _stack([{
-            "attn_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
-            "attn": L.init_attention(gen, cfg.d_model, self.attn_spec, dt),
-            "ffn_norm": L.init_norm(cfg.d_model, cfg.norm, dt, dev),
-            "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dt),
-        } for _ in range(cfg.n_layers)])
+        p["layers"] = _stack([self._init_block(gen)
+                              for _ in range(cfg.n_layers)])
+        if cfg.family == "hybrid":
+            p["shared_attn"] = self._shared_attn_block(gen)
         p["final_norm"] = L.init_norm(cfg.d_model, cfg.norm, dt, dev)
         p["lm_head"] = L._normal(gen, (cfg.d_model, cfg.vocab),
                                  cfg.d_model ** -0.5, dt)
@@ -114,9 +153,18 @@ class Model:
     # ------------------------------------------------------------------
 
     def _apply_block(self, x, blk: Params, cache, cache_index, *,
-                     block_table=None, seq_lengths=None):
+                     block_table=None, seq_lengths=None,
+                     register_index=None, valid_len=None):
         cfg = self.cfg
         hooks = self.quant_hooks
+        if cfg.family in ("ssm", "hybrid"):
+            h = L.apply_norm(x, blk["norm"], cfg.norm)
+            h = S.ssm_block(h, blk["ssm"], head_dim=cfg.ssm_head_dim,
+                            state=cfg.ssm_state, chunk=cfg.ssm_chunk,
+                            cache=cache, register_index=register_index,
+                            valid_len=valid_len, act_in=hooks.get("act_in"),
+                            out_proj_fn=hooks.get("ssm_out_proj_fn"))
+            return x + h
         h = L.apply_norm(x, blk["attn_norm"], cfg.norm)
         h, _ = L.attention(h, blk["attn"], self.attn_spec, cache=cache,
                            cache_index=cache_index, block_table=block_table,
@@ -124,20 +172,67 @@ class Model:
                            act_in=hooks.get("act_in"))
         x = x + h
         h = L.apply_norm(x, blk["ffn_norm"], cfg.norm)
-        h = L.mlp(h, blk["ffn"], cfg.act,
+        if cfg.uses_moe:
+            kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k, act=cfg.act,
+                      down_proj_fn=hooks.get("moe_down_proj_fn"),
+                      act_in=hooks.get("act_in"),
+                      shared_down_proj_fn=hooks.get("down_proj_fn"))
+            if self.moe_dense_oracle:
+                h = M.moe_ffn_dense_oracle(h, blk["moe"], **kw)
+            else:
+                h = M.moe_ffn(h, blk["moe"],
+                              capacity_factor=cfg.capacity_factor, **kw)
+        else:
+            h = L.mlp(h, blk["ffn"], cfg.act,
+                      down_proj_fn=hooks.get("down_proj_fn"),
+                      act_in=hooks.get("act_in"))
+        return x + h
+
+    def _apply_shared(self, x, shared: Params, cache, cache_index, *,
+                      block_table=None, seq_lengths=None):
+        cfg = self.cfg
+        hooks = self.quant_hooks
+        h = L.apply_norm(x, shared["attn_norm"], cfg.norm)
+        h, _ = L.attention(h, shared["attn"], self.attn_spec, cache=cache,
+                           cache_index=cache_index, block_table=block_table,
+                           seq_lengths=seq_lengths,
+                           act_in=hooks.get("act_in"))
+        x = x + h
+        h = L.apply_norm(x, shared["ffn_norm"], cfg.norm)
+        h = L.mlp(h, shared["ffn"], cfg.act,
                   down_proj_fn=hooks.get("down_proj_fn"),
                   act_in=hooks.get("act_in"))
         return x + h
 
+    def _hybrid_groups(self) -> tuple[int, int, int]:
+        """(n_groups, period, tail): L = n_groups * period + tail; the
+        shared attention block runs after each full group."""
+        cfg = self.cfg
+        period = cfg.hybrid_period or cfg.n_layers
+        n_groups = cfg.n_layers // period
+        return n_groups, period, cfg.n_layers - n_groups * period
+
     def _run_layers(self, params: Params, x, *, caches=None,
                     cache_index=None, block_table=None, seq_lengths=None,
+                    register_index=None, valid_len=None,
                     remat: bool = False):
         """Every layer in turn over the views of its params and caches (the
-        caches' views write into the stacked pools); with `remat` (no
-        caches) each layer is checkpointed."""
-        n = self.cfg.n_layers
-        views = [None] * n if caches is None else L.unstack(caches, n)
-        for blk, cache in zip(L.unstack(params["layers"], n), views):
+        caches' views write into the stacked pools); a hybrid runs the
+        shared block after each full group of `hybrid_period` layers, on
+        the group's own kv cache. With `remat` (no caches) each layer is
+        checkpointed."""
+        cfg = self.cfg
+        n = cfg.n_layers
+        hybrid = cfg.family == "hybrid"
+        layer_caches = caches["ssm"] if hybrid and caches is not None \
+            else caches
+        views = [None] * n if caches is None else L.unstack(layer_caches, n)
+        if hybrid:
+            n_groups, period, _ = self._hybrid_groups()
+            shared_views = [None] * n_groups if caches is None \
+                else L.unstack(caches["shared"], n_groups)
+        for i, (blk, cache) in enumerate(zip(
+                L.unstack(params["layers"], n), views)):
             if remat:
                 x = ckpt.checkpoint(self._apply_block, x, blk, None, None,
                                     use_reentrant=False,
@@ -145,7 +240,22 @@ class Model:
             else:
                 x = self._apply_block(x, blk, cache, cache_index,
                                       block_table=block_table,
-                                      seq_lengths=seq_lengths)
+                                      seq_lengths=seq_lengths,
+                                      register_index=register_index,
+                                      valid_len=valid_len)
+            if hybrid and (i + 1) % period == 0 \
+                    and (i + 1) // period <= n_groups:
+                g = (i + 1) // period - 1
+                if remat:
+                    x = ckpt.checkpoint(self._apply_shared, x,
+                                        params["shared_attn"], None, None,
+                                        use_reentrant=False,
+                                        **self._remat_context())
+                else:
+                    x = self._apply_shared(x, params["shared_attn"],
+                                           shared_views[g], cache_index,
+                                           block_table=block_table,
+                                           seq_lengths=seq_lengths)
         return x
 
     def _remat_context(self) -> dict:
@@ -217,19 +327,56 @@ class Model:
     # Serving
     # ------------------------------------------------------------------
 
+    def _stacked(self, one: Params, n: int) -> Params:
+        return {k: v[None].repeat(n, *([1] * v.dim())) for k, v in one.items()}
+
+    def _ssm_cache(self, batch: int, dtype, device) -> Params:
+        cfg = self.cfg
+        return self._stacked(S.init_ssm_cache(
+            batch, cfg.d_model, expand=cfg.ssm_expand,
+            head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
+            conv_width=cfg.ssm_conv_width, dtype=dtype, device=device),
+            cfg.n_layers)
+
+    def _attn_cache(self, batch: int, max_len: int, n: int, dtype,
+                    device) -> Params:
+        return self._stacked(L.init_attention_cache(
+            batch, max_len, self.attn_spec, dtype, device), n)
+
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device="cuda") -> Params:
-        """Dense cache `[n_layers, batch, max_len, KH, Dh]` per leaf; with
-        (n_pages, page_size) it is a page pool."""
-        one = L.init_attention_cache(batch, max_len, self.attn_spec, dtype,
-                                     device)
-        return {k: v[None].repeat(self.cfg.n_layers, 1, 1, 1, 1)
-                for k, v in one.items()}
+        """The native dense cache: `[n_layers, batch, max_len, KH, Dh]` per
+        kv leaf (with (n_pages, page_size) a page pool); an SSM's
+        `{"conv": [n_layers, batch, W-1, C] in dtype, "state": [n_layers,
+        batch, H, N, P] f32}`; a hybrid's `{"ssm": ..., "shared": kv leaves
+        [n_groups, ...]}`."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return self._ssm_cache(batch, dtype, device)
+        if cfg.family == "hybrid":
+            n_groups, _, _ = self._hybrid_groups()
+            return {"ssm": self._ssm_cache(batch, dtype, device),
+                    "shared": self._attn_cache(batch, max_len, n_groups,
+                                               dtype, device)}
+        return self._attn_cache(batch, max_len, cfg.n_layers, dtype, device)
 
     def init_paged_state(self, n_pages: int, page_size: int, n_slots: int,
                          dtype=torch.bfloat16, device="cuda") -> Params:
-        """The engine's `{"kv": page pools, "register": {}}` state (the
-        dense families carry kv state only)."""
+        """The engine's `{"kv": ..., "register": ...}` state: kv leaves are
+        page pools ([n_layers or n_groups, n_pages, page_size, ...]),
+        register leaves slot pools ([n_layers, n_slots, ...], one slot per
+        admitted sequence). Dense and MoE state is pure kv, SSM pure
+        register, a hybrid both."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return {"kv": {}, "register": self._ssm_cache(n_slots, dtype,
+                                                          device)}
+        if cfg.family == "hybrid":
+            n_groups, _, _ = self._hybrid_groups()
+            return {"kv": {"shared": self._attn_cache(
+                        n_pages, page_size, n_groups, dtype, device)},
+                    "register": {"ssm": self._ssm_cache(n_slots, dtype,
+                                                        device)}}
         return {"kv": self.init_cache(n_pages, page_size, dtype, device),
                 "register": {}}
 
@@ -245,17 +392,30 @@ class Model:
     def forward_chunk(self, params: Params, tokens: torch.Tensor,
                       caches: Params, index,
                       block_table: torch.Tensor | None = None,
-                      seq_lengths: torch.Tensor | None = None):
+                      seq_lengths: torch.Tensor | None = None,
+                      register_index: torch.Tensor | None = None):
         """Token chunk [B, S] at fill position `index` -> per-position
         logits [B, S, V] and the caches, updated in place. S == 1 with a
         [B] tensor index is a per-slot decode step; S > 1 with an int index
         is one chunk of a chunked prefill. With `block_table` [B, P] the
-        caches are the engine's page pools ([n_layers, n_pages, T, ...])
-        and `seq_lengths` [B] end each sequence's walk."""
+        kv caches are the engine's page pools ([n_layers, n_pages, T, ...])
+        and `seq_lengths` [B] end each sequence's walk. With
+        `register_index` [B] the SSM caches are the engine's register slot
+        pools ([n_layers, n_slots, ...]), and in a prefill chunk
+        `seq_lengths` also bound each row's live tokens, so a right-padded
+        tail stays out of the carried state."""
         x = self._embed_tokens(params, tokens)
+        valid_len = None
+        if register_index is not None and seq_lengths is not None \
+                and tokens.shape[1] > 1:
+            # a prefill chunk: the row's live tokens in this chunk end at
+            # seq_lengths - index
+            valid_len = seq_lengths.to(torch.int64) - int(index)
         x = self._run_layers(params, x, caches=caches, cache_index=index,
                              block_table=block_table,
-                             seq_lengths=seq_lengths)
+                             seq_lengths=seq_lengths,
+                             register_index=register_index,
+                             valid_len=valid_len)
         return self._head(params, x), caches
 
     def decode_step(self, params: Params, tokens: torch.Tensor,

@@ -1,7 +1,7 @@
 """Paged continuous-batching serving engine.
 
 One `ServableModel` adapter (`adapter`), a paged KV state with refcounted
-pages, per-sequence block tables and a host swap tier (`pages`), a radix
+pages, per-sequence block tables and register slots for fixed-size (SSM) state and a host swap tier (`pages`), a radix
 prefix cache over the pages (`radix`), a seedable fault plan (`faults`) and
 a chunked-prefill continuous-batching scheduler (`scheduler`) with
 optimistic admission backed by preemption and replay, request lifecycles
@@ -13,8 +13,8 @@ pages and attends by walking the table in `kernels.ops.paged_attention`.
 from .adapter import (DenseModelAdapter, IntegerModelAdapter, ServableModel,
                       StateSpec, as_servable, derive_state_spec)
 from .faults import DispatchFault, FaultPlan, SwapFault
-from .pages import (SCRATCH_PAGE, HostPageRef, HostSwapPool, PageAllocator,
-                    PagedKVCache, pages_for)
+from .pages import (SCRATCH_PAGE, SCRATCH_SLOT, HostPageRef, HostSwapPool,
+                    PageAllocator, PagedKVCache, RegisterAllocator, pages_for)
 from .radix import RadixCache, RadixNode
 from .scheduler import (EngineRequest, EngineStalledError, SamplingParams,
                         ServeEngine)
@@ -22,8 +22,8 @@ from .scheduler import (EngineRequest, EngineStalledError, SamplingParams,
 __all__ = [
     "ServableModel", "StateSpec", "derive_state_spec", "DenseModelAdapter",
     "IntegerModelAdapter",
-    "as_servable", "PageAllocator", "PagedKVCache", "pages_for",
-    "SCRATCH_PAGE", "EngineRequest", "EngineStalledError", "SamplingParams",
+    "as_servable", "PageAllocator", "PagedKVCache", "RegisterAllocator",
+    "pages_for", "SCRATCH_PAGE", "SCRATCH_SLOT", "EngineRequest", "EngineStalledError", "SamplingParams",
     "ServeEngine", "FaultPlan", "DispatchFault", "SwapFault", "RadixCache",
     "RadixNode", "HostPageRef", "HostSwapPool",
 ]

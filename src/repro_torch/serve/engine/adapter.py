@@ -3,16 +3,21 @@
 Each adapter derives a `StateSpec` from its config declaring which state
 kinds the model carries: `kv` (sequence-length-proportional attention
 caches, stored in page pools and addressed through block tables) and
-`register` (fixed-size per-sequence state of SSM layers; not ported yet).
+`register` (fixed-size per-sequence state of SSM layers - a Mamba2 layer's
+conv tail and SSD state - stored in slot pools, one slot per sequence).
 `init_state(n_pages, page_size, n_slots)` builds the `{"kv": ...,
-"register": {}}` tree the engine owns, and `forward_chunk` runs one [B, S]
-chunk against it: kv rows are scattered straight into their pages and
-attention walks the table through `kernels.ops.paged_attention`.
+"register": ...}` tree the engine owns, and `forward_chunk` runs one
+[B, S] chunk against it: kv rows are scattered straight into their pages
+and attention walks the table through `kernels.ops.paged_attention`;
+register leaves are gathered by slot on entry and written back once.
+Dense and MoE models are pure kv, pure SSMs pure register (no block
+table), hybrids both.
 
-Two execution paths are servable: the bf16 or fake-quant `Model` (the
-fake-quant model is the same class with the PTQ hooks installed; float KV
-pages, f32 by default as in the reference) and the packed-int4
-`QuantizedDenseLM`. Register-slot state (SSM, hybrid) is ROADMAP Queue A10.
+Two execution paths are servable: the bf16 or fake-quant `Model` of any
+decode-capable token-LM family (the fake-quant model is the same class
+with the PTQ hooks installed; float KV pages and conv registers, f32 by
+default as in the reference) and the packed-int4 `QuantizedDenseLM`
+(dense archs). The state is updated in place.
 """
 from __future__ import annotations
 
@@ -86,7 +91,8 @@ class ServableModel(Protocol):
     def init_state(self, n_pages: int, page_size: int,
                    n_slots: int) -> Params:
         """`{"kv": ..., "register": ...}` paged state: kv leaves
-        [n_layers, n_pages, page_size, ...]."""
+        [n_layers, n_pages, page_size, ...], register leaves [n_layers,
+        n_slots, ...]; either part may be empty per the spec."""
         ...
 
     def init_cache(self, batch: int, max_len: int) -> Params:
@@ -100,9 +106,10 @@ class ServableModel(Protocol):
                       register_index: torch.Tensor | None = None):
         """[B, S] tokens at fill position(s) `index` -> ([B, S, V] logits,
         the cache, updated in place). In paged mode (`block_table` [B, P]
-        present) `cache` is the engine's state tree; `seq_lengths` [B]
-        (true context lengths, 0 for padded rows) drive the paged kernel's
-        ragged early exit."""
+        and/or `register_index` [B] present) `cache` is the engine's state
+        tree; `seq_lengths` [B] (true context lengths, 0 for padded rows)
+        drive the paged kernel's ragged early exit and mask a padded
+        prefill chunk's tail out of the SSM state recurrence."""
         ...
 
 
@@ -127,11 +134,22 @@ class _AdapterBase:
     def device(self) -> torch.device:
         return self.params["embed"].device
 
+    def _merge(self, state: Params) -> Params:
+        """The partitioned engine state as the model's native cache tree
+        (the same tensors: the model updates them in place, so the engine's
+        tree needs no split back)."""
+        fam = self.cfg.family
+        if fam == "ssm":
+            return state["register"]
+        if fam == "hybrid":
+            return {"ssm": state["register"]["ssm"],
+                    "shared": state["kv"]["shared"]}
+        return state["kv"]
+
 
 class DenseModelAdapter(_AdapterBase):
-    """bf16 or fake-quant `Model` (the PTQ hooks ride along). Its state is
-    pure kv for the families the port serves, on the parameters'
-    device."""
+    """bf16 or fake-quant `Model` of any servable family (the PTQ hooks
+    ride along), its state on the parameters' device."""
 
     def __init__(self, model: Model, params: Params, *, name: str = "bf16",
                  cache_dtype=torch.float32):
@@ -156,12 +174,11 @@ class DenseModelAdapter(_AdapterBase):
         if probe:
             raise ValueError("quality probes are instrumented on the "
                              "integer path only (QuantizedDenseLM)")
-        if register_index is not None:
-            raise ValueError("register-slot state is ROADMAP Queue A10")
-        paged = block_table is not None
-        caches = cache["kv"] if paged else cache
+        paged = block_table is not None or register_index is not None
+        caches = self._merge(cache) if paged else cache
         logits, _ = self.model.forward_chunk(params, tokens, caches, index,
-                                             block_table, seq_lengths)
+                                             block_table, seq_lengths,
+                                             register_index)
         return logits, cache
 
 
@@ -198,7 +215,7 @@ class IntegerModelAdapter(_AdapterBase):
         if register_index is not None:
             raise ValueError("integer path serves kv-only state")
         paged = block_table is not None
-        caches = cache["kv"] if paged else cache
+        caches = self._merge(cache) if paged else cache
         out = self.qlm.forward_chunk(params, tokens, caches, index,
                                      block_table, seq_lengths, probe=probe)
         # the caches were updated in place: hand the engine's tree back, and

@@ -28,7 +28,9 @@ own), the RoPE frequencies and rotation operands cached per device, the
 kernel library itself. Then the function is captured into the pool the
 caller shares between its variants (replays run one at a time on one
 stream, so the variants' intermediates may share memory; their inputs and
-outputs stay referenced here). Every later call replays. A capture or a
+outputs stay referenced here), with Python's cycle collector run just
+before and held off during it: a dead engine's graph freed inside a
+capture would invalidate it. Every later call replays. A capture or a
 replay that fails raises; there is no eager fallback on the card. Each call
 runs the function's device work once - the first eagerly, the rest by
 replay - so in-place writes (the KV pages) happen once per call and the
@@ -40,6 +42,7 @@ host - the same object calls the function directly on the same buffers.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable
 
@@ -92,10 +95,19 @@ class CapturedCall:
         before = kops.count_snapshot()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        # A graph destroyed while another is being captured (a dead
+        # engine's, freed by Python's cycle collector: an engine and its
+        # captured calls refer to each other) resets inside the capture,
+        # which invalidates it. Collect first, and not during the capture.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 outputs = self.fn(**self.inputs)
         finally:
+            if collecting:
+                gc.enable()
             delta = kops.counts_since(before)
             kops.add_counts(delta, -1)      # a capture launches nothing
         self.capture_s = time.perf_counter() - t0

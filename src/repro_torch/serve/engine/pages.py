@@ -1,16 +1,27 @@
-"""Paged serving state: the KV page pool, its host-side bookkeeping and the
-host swap tier.
+"""Paged serving state: the KV page pool, the register slot pool, their
+host-side bookkeeping and the host swap tier.
 
-KV leaves grow with sequence length. They live in one page pool per leaf -
-shape `[n_layers, n_pages, page_size, ...]` - with a host-side block table
-per sequence mapping logical positions to pages. Pages are allocated lazily
-as a sequence grows and freed on completion, so pool memory is shared across
-sequences of very different lengths.
+A served model's state is `{"kv": ..., "register": ...}`, two kinds:
 
-The data path is block-table-native: the scheduler hands the pool and the
-per-sequence block-table rows straight to the model's `forward_chunk`, which
-scatters each new KV row into its page and attends by walking the table
-inside `kernels.ops.paged_attention`. No contiguous slab is ever built.
+- **kv** leaves grow with sequence length. They live in one page pool per
+  leaf - shape `[n_layers, n_pages, page_size, ...]` (a hybrid's shared
+  attention block: `[n_groups, ...]`, nested under `"shared"`) - with a
+  host-side block table per sequence mapping logical positions to pages.
+  Pages are allocated lazily as a sequence grows and freed on completion,
+  so pool memory is shared across sequences of very different lengths.
+- **register** leaves are fixed-size per sequence: a Mamba2 layer's conv
+  tail and SSD state. They live in slot pools - `[n_layers, n_slots, ...]`
+  - and a sequence holds one slot (`RegisterAllocator`) from admission to
+  release. No block table: the slot id indexes axis 1 of every register
+  leaf. Register slots are never shared (the state is a running summary,
+  not an addressable prefix) and never swapped.
+
+The data path is block-table-native: the scheduler hands the pool, the
+per-sequence block-table rows and the register slots straight to the
+model's `forward_chunk`, which scatters each new KV row into its page and
+attends by walking the table inside `kernels.ops.paged_attention`, and
+gathers and writes back the register slots. No contiguous slab is ever
+built.
 
 This module keeps the bookkeeping: the refcounted allocator, block tables,
 release-time scrubbing, copy-on-write page copies and the swap tier.
@@ -20,9 +31,11 @@ hits zero (the pages that actually dropped to zero are `free()`'s return
 value, and exactly those are scrubbed). `alloc()` validates before mutating:
 `MemoryError` on exhaustion leaves the free list untouched.
 
-Page 0 is reserved as scratch: padded batch rows and padded block-table
-entries point at it, so their masked reads and dead writes can never touch
-a live sequence's state.
+Page 0 and slot 0 are reserved as scratch: padded batch rows and padded
+block-table entries point at them, so their masked reads and dead writes
+can never touch a live sequence's state. A released register slot is
+scrubbed with the request's pages: the next sequence reads its slot's
+whole state at admission, so stale rows would leak into it.
 
 The pool is a set of torch tensors **updated in place** - `scrub` is one
 indexed fill per leaf, `cow_copy` one indexed copy per leaf, and the model's
@@ -51,8 +64,6 @@ events on one side stream:
 On the CPU the same steps run as plain copies. A failed copy raises.
 `_inflight` holds the device pages inside a transfer window; scrub and COW
 refuse them.
-
-Not ported yet: register slots (SSM state, ROADMAP Queue A10).
 """
 from __future__ import annotations
 
@@ -62,10 +73,12 @@ from typing import Any, Callable
 import torch
 
 from ...kernels import ops as kops
+from ...tree import leaves as tree_leaves
 
 Params = dict[str, Any]
 
 SCRATCH_PAGE = 0
+SCRATCH_SLOT = 0
 
 
 def pages_for(n_tokens: int, page_size: int) -> int:
@@ -162,6 +175,53 @@ class PageAllocator:
         return freed
 
 
+class RegisterAllocator:
+    """Free-list allocator over register slots - the `PageAllocator`
+    sibling for the fixed-size state kind (slot 0 reserved as scratch).
+
+    A sequence holds exactly one slot for its whole lifetime, so slots are
+    allocated and freed one at a time, and the capacity equals the engine's
+    bound on concurrent sequences. `alloc` raises `MemoryError` on
+    exhaustion and `free` `ValueError` on a double or invalid free; both
+    leave the allocator unchanged when they raise.
+    """
+
+    def __init__(self, n_slots: int):
+        if n_slots < 2:
+            raise ValueError("register pool needs at least 2 slots "
+                             "(slot 0 is scratch)")
+        self.n_slots = n_slots
+        self._free = list(range(n_slots - 1, SCRATCH_SLOT, -1))
+        self.peak_in_use = 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        return self.capacity - len(self._free)
+
+    @property
+    def capacity(self) -> int:
+        """Allocatable slots (excludes the scratch slot)."""
+        return self.n_slots - 1
+
+    def reset_peak(self):
+        self.peak_in_use = self.in_use
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise MemoryError("register slots exhausted")
+        out = self._free.pop()
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        return out
+
+    def free(self, slot: int):
+        if slot <= SCRATCH_SLOT or slot >= self.n_slots \
+                or slot in self._free:
+            raise ValueError(f"double/invalid free of register slot {slot}")
+        self._free.append(slot)
 
 
 def _leaf_page_bytes(a: torch.Tensor) -> int:
@@ -285,27 +345,31 @@ class HostSwapPool:
 
 
 class PagedKVCache:
-    """Pool state + allocator + per-sequence block tables for one served
-    model. `state` is the `{"kv": ..., "register": {}}` tree the adapter's
-    `init_state` built (a bare kv pool is accepted and wrapped)."""
+    """Partitioned state + allocators + per-sequence block tables and
+    register-slot map for one served model. `state` is the `{"kv": ...,
+    "register": ...}` tree the adapter's `init_state` built (a bare kv pool
+    is accepted and wrapped); `n_slots` sizes the register allocator when
+    the state has register leaves."""
 
-    def __init__(self, state: Params, n_pages: int, page_size: int):
+    def __init__(self, state: Params, n_pages: int, page_size: int,
+                 n_slots: int = 0):
         if not (isinstance(state, dict) and set(state) == {"kv", "register"}):
             state = {"kv": state, "register": {}}
-        if state["register"]:
-            raise NotImplementedError(
-                "register-slot state (SSM families) is not ported yet "
-                "(ROADMAP Queue A10)")
         self.state = state
         self.page_size = page_size
         self.allocator = PageAllocator(n_pages)
         # entries are device page ids (int) or HostPageRef: the per-page
         # residency ledger lives in the tables themselves
         self.tables: dict[int, list[int | HostPageRef]] = {}
-        leaves = list(state["kv"].values())
+        self._kv_leaves = tree_leaves(state["kv"])
+        self._reg_leaves = tree_leaves(state["register"])
+        self.registers = RegisterAllocator(n_slots) if self._reg_leaves \
+            else None
+        self.slots: dict[int, int] = {}          # rid -> register slot
+        leaves = self._kv_leaves + self._reg_leaves
         self.device = leaves[0].device if leaves else torch.device("cpu")
         # bytes one page costs across every kv leaf (the swap cost unit)
-        self.page_bytes = sum(_leaf_page_bytes(a) for a in leaves)
+        self.page_bytes = sum(_leaf_page_bytes(a) for a in self._kv_leaves)
         # host swap tier: absent until the engine attaches a budget
         self.host_pool: HostSwapPool | None = None
         # device pages inside a swap transfer window right now; scrub and
@@ -320,6 +384,7 @@ class PagedKVCache:
         self._staged: list[tuple[Any, dict]] = []
         self.last_transfer = None
         self.pages_scrubbed = 0
+        self.slots_scrubbed = 0
         self.pages_swapped_out = 0
         self.pages_swapped_in = 0
 
@@ -334,9 +399,18 @@ class PagedKVCache:
             raise RuntimeError(f"{what} writes the page pool while a CUDA "
                                "graph is being captured")
 
+    @property
+    def slot_bytes(self) -> int:
+        """Bytes one register slot costs across every register leaf."""
+        return sum(_leaf_page_bytes(a) for a in self._reg_leaves)
+
     def open(self, rid: int):
+        """Open `rid`'s block table and, for register state, claim its
+        slot (`MemoryError` when none is free, with nothing opened)."""
         if rid in self.tables:
             raise ValueError(f"sequence {rid} already open")
+        if self.registers is not None:
+            self.slots[rid] = self.registers.alloc()
         self.tables[rid] = []
 
     def ensure(self, rid: int, n_tokens: int):
@@ -347,44 +421,62 @@ class PagedKVCache:
             table.extend(self.allocator.alloc(need))
 
     def release(self, rid: int, adopted: int = 0):
-        """Return `rid`'s pages. The first `adopted` table entries'
-        references were taken over by another holder (the radix prefix
-        tree) and are skipped; the rest are dereffed, and only pages that
-        dropped to refcount 0 are scrubbed. Host-resident entries (a
-        swapped-out sequence cancelled, expired or degraded to replay)
-        return their slots to the swap tier once the copy into them has
-        landed."""
+        """Return `rid`'s pages and register slot. The first `adopted`
+        table entries' references were taken over by another holder (the
+        radix prefix tree) and are skipped; the rest are dereffed, and only
+        pages that dropped to refcount 0 are scrubbed - together with the
+        register slot. Host-resident entries (a swapped-out sequence
+        cancelled, expired or degraded to replay) return their slots to the
+        swap tier once the copy into them has landed."""
         entries = self.tables.pop(rid)[adopted:]
+        slot = self.slots.pop(rid, None)
         after = self._out_events.pop(rid, None)
-        self.deref([p for p in entries if isinstance(p, int)])
+        self.deref([p for p in entries if isinstance(p, int)], slot)
         host_slots = [e.slot for e in entries if isinstance(e, HostPageRef)]
         if host_slots:
             self.host_pool.release(host_slots, after=after)
+        if slot is not None:
+            self.registers.free(slot)
 
-    def deref(self, pages: list[int]):
-        """Drop one reference per page; scrub whatever actually freed."""
-        self.scrub(self.allocator.free(pages))
+    def deref(self, pages: list[int], slot: int | None = None):
+        """Drop one reference per page; scrub whatever actually freed, and
+        `slot` with it (one `scrub` call either way)."""
+        freed = self.allocator.free(pages)
+        if slot is None:
+            self.scrub(freed)
+        else:
+            self.scrub(freed, slot)
 
-    def scrub(self, pages: list[int]):
-        """Zero released pages so a recycled page can never leak its
-        predecessor's rows: one indexed fill per pool leaf, in place,
-        tallied as one `scrub_state` dispatch under the reference's path
-        tag (`kernels_enabled()`). Callers pass only pages that dropped to
-        refcount 0 - scrubbing a still-shared page would corrupt every
-        surviving holder - and never a page inside a swap transfer."""
+    def scrub(self, pages: list[int], slot: int | None = None):
+        """Zero released state of both kinds so a recycled page or slot can
+        never leak its predecessor's: the pages' rows of every kv leaf and
+        `slot` of every register leaf, indexed fills in place, tallied
+        together as one `scrub_state` dispatch under the reference's path
+        tag (`kernels_enabled()`). For register leaves this is load-
+        bearing: a sequence reads its slot's whole state at admission.
+        Callers pass only pages that dropped to refcount 0 - scrubbing a
+        still-shared page would corrupt every surviving holder - and never
+        a page inside a swap transfer."""
         bad = set(pages) & self._inflight
         assert not bad, f"scrub of in-flight swap page(s) {sorted(bad)}"
         for p in pages:
             assert self.allocator.refcount(p) == 0, \
                 f"scrub of still-referenced page {p}"
-        if not pages or not self.state["kv"]:
+        do_pages = bool(pages) and bool(self._kv_leaves)
+        do_slot = slot is not None and bool(self._reg_leaves)
+        if not do_pages and not do_slot:
             return
         self._no_capture("scrub")
         kops._record_dispatch("scrub_state", kops.kernels_enabled())
-        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
-        for leaf in self.state["kv"].values():
-            leaf.index_fill_(1, idx, 0)
-        self.pages_scrubbed += len(pages)
+        if do_pages:
+            idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+            for leaf in self._kv_leaves:
+                leaf.index_fill_(1, idx, 0)
+            self.pages_scrubbed += len(pages)
+        if do_slot:
+            for leaf in self._reg_leaves:
+                leaf[:, slot].zero_()
+            self.slots_scrubbed += 1
 
     def cow_copy(self, src: int, dst: int):
         """Copy-on-write: duplicate page `src` into `dst` on every kv leaf,
@@ -400,7 +492,7 @@ class PagedKVCache:
             f"cow from unallocated (or host-resident) page {src}"
         self._no_capture("cow_copy")
         kops._record_dispatch("cow_page_copy", kops.kernels_enabled())
-        for leaf in self.state["kv"].values():
+        for leaf in self._kv_leaves:
             leaf[:, dst].copy_(leaf[:, src])
 
     # ------------------------------------------------------------------
@@ -425,7 +517,7 @@ class PagedKVCache:
         written back to itself - its contents are garbage by contract."""
         idx = torch.tensor([SCRATCH_PAGE], dtype=torch.int64,
                            device=self.device)
-        for leaf in self.pool.values():
+        for leaf in self._kv_leaves:
             leaf.index_copy_(1, idx, leaf.transpose(0, 1).index_select(
                 0, idx).transpose(0, 1))
         torch.cuda.synchronize(self.device)
@@ -624,3 +716,11 @@ class PagedKVCache:
         bt = [row + [SCRATCH_PAGE] * (n_cols - len(row)) for row in bt]
         return torch.tensor(bt, dtype=torch.int32,
                             device=self.device).reshape(len(rids), n_cols)
+
+    def register_index_array(self, rids: list[int | None]) -> torch.Tensor:
+        """[len(rids)] int32 register slot per batch row, on the state's
+        device; `None` (padded) rows point at the scratch slot, so their
+        dead writes never touch a live sequence's state."""
+        return torch.tensor(
+            [self.slots[r] if r is not None else SCRATCH_SLOT for r in rids],
+            dtype=torch.int32, device=self.device)

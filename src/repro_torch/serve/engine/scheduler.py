@@ -82,6 +82,14 @@ Each stochastic row draws from its own generator seeded from
 the token sampled at a given position of a given request is the same no
 matter which step, batch slot or replay produces it.
 
+**Register state** (SSM and hybrid families): each admitted sequence
+holds one register slot (`max_seqs + 1` slots, 0 the scratch slot of
+padded rows) from admission to release, scrubbed with its pages; decode
+passes the rows' slots as one more input of the captured step. The slots
+never grow, so register-only models need no pages and have no implied
+context window; their state is a running summary, so the prefix cache and
+the swap tier refuse it and a preempted request replays.
+
 The page pool is updated in place by the model's forward; the engine keeps
 one reference to it (`self.kv.state`).
 
@@ -308,10 +316,6 @@ class ServeEngine:
                              f"'always', got {swap_policy!r}")
         self.adapter = adapter
         self.spec = adapter.state_spec
-        if not self.spec.kv or self.spec.register:
-            raise NotImplementedError(
-                "only kv-only state specs are served so far "
-                "(register-slot state is ROADMAP Queue A10)")
         self.device = adapter.device
         self.max_seqs = max_seqs
         self.prefill_chunk = prefill_chunk
@@ -322,24 +326,45 @@ class ServeEngine:
         self.default_deadline_s = deadline_s
         self.faults = faults
         self.seed = seed
-        self.kv = PagedKVCache(adapter.init_state(n_pages, page_size, 0),
-                               n_pages, page_size)
+        # one register slot per concurrent sequence (+ the scratch slot):
+        # admission is bounded by max_seqs, so slots never run out before
+        # sequence slots do
+        n_slots = max_seqs + 1
+        self.kv = PagedKVCache(adapter.init_state(n_pages, page_size,
+                                                  n_slots),
+                               n_pages, page_size, n_slots=n_slots)
         cap = self.kv.allocator.capacity
         # headroom watermark: pages optimistic admission keeps free for
         # decode growth of the running batch (waived for a replay or a
         # swapped request, whose requirement is already its real footprint)
         self.headroom_pages = min(max_seqs, cap // 4) \
             if headroom_pages is None else headroom_pages
+        # context window: explicit, else the pool bound for kv specs
+        # (register-only state never grows, so there is no implied bound)
         self.max_context = max_context if max_context is not None \
-            else cap * page_size
-        # the served specs are kv-only, so every one can share prefixes and
-        # swap its pages
+            else (cap * page_size if self.spec.kv else None)
+        # prefix-sharing radix cache: kv-only specs (register/SSM state is
+        # position-dependent - see StateSpec.prefix_shareable)
+        if prefix_cache and not self.spec.prefix_shareable:
+            raise ValueError(
+                f"adapter {adapter.name!r} carries register state: SSM "
+                "state is position-dependent, so the prefix cache cannot "
+                "serve this spec")
         self.prefix_cache = RadixCache(self.kv, prefix_cache_pages) \
             if prefix_cache else None
+        # host swap tier: a byte budget for parking preemption victims' KV
+        # pages instead of recomputing them (kv-only specs - register state
+        # is fixed-size slot-resident and never paged out)
         self.swap_policy = swap_policy if swap_host_mb else "never"
         self.swap_max_retries = swap_max_retries
         self.swap_break_even_bytes_per_token = swap_break_even_bytes_per_token
         if swap_host_mb and swap_policy != "never":
+            if self.spec.register:
+                raise ValueError(
+                    f"adapter {adapter.name!r} carries register state: "
+                    "fixed-size SSM slots are not paged, so the host swap "
+                    "tier cannot serve this spec (recompute-by-replay "
+                    "still covers it)")
             self.kv.attach_host_pool(swap_host_mb)
         self._draining = False
         self.queue: list[EngineRequest] = []
@@ -403,25 +428,26 @@ class ServeEngine:
         if any(req.rid == r.rid for r in self.queue + self.active):
             raise ValueError(f"rid {req.rid} already queued or active")
         total = len(req.prompt) + req.sampling.max_new
-        if total > self.max_context:
+        if self.max_context is not None and total > self.max_context:
             raise ValueError(
                 f"request {req.rid}: prompt ({len(req.prompt)} tokens) + "
                 f"max_new ({req.sampling.max_new}) exceeds the model "
                 f"context window ({self.max_context} tokens)")
-        worst = pages_for(total, self.kv.page_size)
-        cap = self.kv.allocator.capacity
-        if worst > cap:
-            raise ValueError(
-                f"request {req.rid} needs {worst} pages; pool capacity "
-                f"is {cap}")
-        if self.admission == "optimistic" \
-                and pages_for(len(req.prompt), self.kv.page_size) \
-                + self.headroom_pages > cap:
-            raise ValueError(
-                f"request {req.rid}: prompt pages + headroom "
-                f"({self.headroom_pages}) exceed pool capacity {cap} - "
-                "it could never be admitted (shrink the prompt or the "
-                "headroom watermark)")
+        if self.spec.kv:
+            worst = pages_for(total, self.kv.page_size)
+            cap = self.kv.allocator.capacity
+            if worst > cap:
+                raise ValueError(
+                    f"request {req.rid} needs {worst} pages; pool capacity "
+                    f"is {cap}")
+            if self.admission == "optimistic" \
+                    and pages_for(len(req.prompt), self.kv.page_size) \
+                    + self.headroom_pages > cap:
+                raise ValueError(
+                    f"request {req.rid}: prompt pages + headroom "
+                    f"({self.headroom_pages}) exceed pool capacity {cap} - "
+                    "it could never be admitted (shrink the prompt or the "
+                    "headroom watermark)")
         if req.deadline_s is None:
             req.deadline_s = self.default_deadline_s
         req.t_submit = time.perf_counter()
@@ -445,7 +471,10 @@ class ServeEngine:
         """KV pages admission requires for this request: the worst case
         under `"reserve"`, the prefill stream's pages under `"optimistic"`
         (growth is backed by preemption), and for a swapped-out request the
-        device pages for exactly its host-resident entries."""
+        device pages for exactly its host-resident entries; 0 for
+        register-only models, whose state never grows."""
+        if not self.spec.kv:
+            return 0
         if req.swapped:
             return sum(1 for e in self.kv.tables[req.rid]
                        if not isinstance(e, int))
@@ -509,6 +538,10 @@ class ServeEngine:
             if self.tracer:
                 self.tracer.end("queued", pid=PID_REQUESTS, tid=req.rid)
                 self.tracer.begin("prefill", pid=PID_REQUESTS, tid=req.rid)
+                if self.spec.register:
+                    self.tracer.instant(
+                        "alloc_slot", pid=PID_REQUESTS, tid=req.rid,
+                        args={"slot": self.kv.slots[req.rid]})
 
     def _alloc_pages(self, n: int) -> list[int]:
         """Allocate `n` pages, evicting cached prefixes under pressure -
@@ -950,6 +983,14 @@ class ServeEngine:
         for p, c in counts.items():
             assert alloc.refcount(p) == c, (p, alloc.refcount(p), c)
         assert alloc.n_free + alloc.in_use == alloc.capacity
+        regs = self.kv.registers
+        if regs is not None:
+            assert regs.in_use == len(self.kv.slots), \
+                (regs.in_use, self.kv.slots)
+            assert set(self.kv.slots) == set(self.kv.tables), \
+                (self.kv.slots, set(self.kv.tables))
+            assert len(set(self.kv.slots.values())) == len(self.kv.slots), \
+                self.kv.slots
 
     def _ensure(self, rid: int, n_tokens: int):
         """`kv.ensure` plus the growth-commit update, the fault-injection
@@ -1022,7 +1063,10 @@ class ServeEngine:
         """Grow every decoding sequence's table by one position, reclaiming
         (tree eviction, then a victim swapped out or preempted) until the
         growth fits; `ensure` is idempotent, so the retry loop re-runs
-        cheaply. A victim may be a member of the batch being grown."""
+        cheaply. A victim may be a member of the batch being grown.
+        Register-only state never grows."""
+        if not self.spec.kv:
+            return
         while True:
             try:
                 for req in list(self.decoding):
@@ -1090,17 +1134,21 @@ class ServeEngine:
                 "pool_bytes": (pool_bytes(self._graph_pool)
                                if self._graph_pool is not None else 0)}
 
-    def _decode_impl(self, tokens, fill, bt, lens, temps=None, top_ks=None,
-                     top_ps=None, uniforms=None, *, samples: bool,
-                     filtered: bool, probe: bool):
+    def _decode_impl(self, tokens, fill, lens, bt=None, reg=None, temps=None,
+                     top_ks=None, top_ps=None, uniforms=None, *,
+                     samples: bool, filtered: bool, probe: bool):
         """One decode step on the device - what `_fused` captures (the
         reference's `_decode_impl`). The forward writes each new KV row into
-        its page, in place, and attends by walking `bt`; `lens` are the
-        true per-slot context lengths (0 for padded rows), which end the
-        kernel's walk at each sequence's live pages and are each sampled
-        token's stream position. Returns (logits [B, V] f32, tokens and max
-        logits [2, B] f64, the per-layer probe stats or None)."""
-        args = (self.adapter.params, tokens, self.kv.state, fill, bt, lens)
+        its page, in place, and attends by walking `bt`; `reg` is each
+        row's register slot (scratch for padded rows) for models whose spec
+        carries fixed-size state, gathered and written back in place;
+        `lens` are the true per-slot context lengths (0 for padded rows),
+        which end the kernel's walk at each sequence's live pages and are
+        each sampled token's stream position. Returns (logits [B, V] f32,
+        tokens and max logits [2, B] f64, the per-layer probe stats or
+        None)."""
+        args = (self.adapter.params, tokens, self.kv.state, fill, bt, lens,
+                reg)
         if probe:
             logits, _, stats = self.adapter.forward_chunk(*args, probe=True)
         else:
@@ -1116,19 +1164,23 @@ class ServeEngine:
         pad = b - len(batch)
         rids = [r.rid for r in batch] + [None] * pad
         new_lens = [r.n_cached + 1 for r in batch]
-        n_cols = _next_pow2(max(
-            pages_for(n, self.kv.page_size) for n in new_lens))
-        m.counter("engine.pages_walked").inc(
-            sum(pages_for(n, self.kv.page_size) for n in new_lens))
-        m.counter("engine.pages_walked_dense").inc(b * n_cols)
         inputs = {
             "tokens": torch.tensor([[r.next_token] for r in batch]
                                    + [[0]] * pad, dtype=torch.int64),
             "fill": torch.tensor([r.n_cached for r in batch] + [0] * pad,
                                  dtype=torch.int32),
-            "bt": self.kv.block_table_array(rids, n_cols),
             "lens": torch.tensor(new_lens + [0] * pad, dtype=torch.int32),
         }
+        n_cols = 0
+        if self.spec.kv:
+            n_cols = _next_pow2(max(
+                pages_for(n, self.kv.page_size) for n in new_lens))
+            m.counter("engine.pages_walked").inc(
+                sum(pages_for(n, self.kv.page_size) for n in new_lens))
+            m.counter("engine.pages_walked_dense").inc(b * n_cols)
+            inputs["bt"] = self.kv.block_table_array(rids, n_cols)
+        if self.spec.register:
+            inputs["reg"] = self.kv.register_index_array(rids)
         samples = any(r.sampling.temperature > 0 for r in batch)
         filtered = samples and self._wants_filtering(batch)
         if samples:
@@ -1206,19 +1258,23 @@ class ServeEngine:
         dev = self.device
         real = min(self.prefill_chunk, budget, len(stream) - start)
         padded = _next_pow2(real)
-        while True:
-            try:
-                self._ensure(req.rid, start + real)
-                break
-            except MemoryError:
-                self._reclaim()
-                if req not in self.prefilling:
-                    return 0, []    # the head itself was preempted
-        n_cols = _next_pow2(pages_for(start + padded, self.kv.page_size))
-        bt = self.kv.block_table_array([req.rid], n_cols)
-        m.counter("engine.pages_walked").inc(
-            pages_for(start + real, self.kv.page_size))
-        m.counter("engine.pages_walked_dense").inc(n_cols)
+        bt = None
+        if self.spec.kv:
+            while True:
+                try:
+                    self._ensure(req.rid, start + real)
+                    break
+                except MemoryError:
+                    self._reclaim()
+                    if req not in self.prefilling:
+                        return 0, []    # the head itself was preempted
+            n_cols = _next_pow2(pages_for(start + padded, self.kv.page_size))
+            bt = self.kv.block_table_array([req.rid], n_cols)
+            m.counter("engine.pages_walked").inc(
+                pages_for(start + real, self.kv.page_size))
+            m.counter("engine.pages_walked_dense").inc(n_cols)
+        reg = self.kv.register_index_array([req.rid]) \
+            if self.spec.register else None
         self._maybe_dispatch_fault("prefill")
 
         # every device-side shape depends only on (padded, n_cols), both
@@ -1226,12 +1282,14 @@ class ServeEngine:
         chunk = stream[start:start + real] + [0] * (padded - real)
         tokens = torch.tensor([chunk], dtype=torch.int64, device=dev)
         # the true cached length after this chunk: trims the kernel's walk
-        # to the live pages, and is the sampled token's stream position
+        # to the live pages, keeps the padded tail out of register (SSM)
+        # state - whose update is a recurrence, not a masked read - and is
+        # the sampled token's stream position
         lens = torch.tensor([start + real], dtype=torch.int32, device=dev)
         tr = self.tracer
         ts0 = tr.ts() if tr else 0.0
         logits, self.kv.state = self.adapter.forward_chunk(
-            self.adapter.params, tokens, self.kv.state, start, bt, lens)
+            self.adapter.params, tokens, self.kv.state, start, bt, lens, reg)
         if tr:
             self._sync()
             tr.complete("dispatch.prefill", ts0, tr.ts() - ts0,
@@ -1408,9 +1466,13 @@ class ServeEngine:
         alloc = self.kv.allocator
         assert alloc.in_use == 0 and alloc.n_free == alloc.capacity, \
             f"device pages leaked: {alloc.in_use} still in use"
-        assert not self.kv.tables, self.kv.tables
+        assert not self.kv.tables and not self.kv.slots, \
+            (self.kv.tables, self.kv.slots)
         assert not self._committed and self._committed_total == 0, \
             (self._committed, self._committed_total)
+        regs = self.kv.registers
+        assert regs is None or regs.in_use == 0, \
+            f"register slots leaked: {regs.in_use} still in use"
         hp = self.kv.host_pool
         assert hp is None or hp.in_use == 0, \
             f"host tier leaked: {hp.in_use} slots still in use"
@@ -1474,6 +1536,14 @@ class ServeEngine:
         m.gauge("engine.swap.host_bytes").set(hp.in_use * pb if hp else 0)
         m.gauge("engine.swap.host_budget_bytes").set(
             hp.capacity * pb if hp else 0)
+        regs = self.kv.registers
+        if regs is not None:
+            m.gauge("engine.register_slots.capacity").set(regs.capacity)
+            m.gauge("engine.register_slots.in_use").set(regs.in_use)
+            m.gauge("engine.register_slots.peak_in_use").set(
+                regs.peak_in_use)
+            m.gauge("engine.register_slots.scrubbed").set(
+                self.kv.slots_scrubbed)
 
     def metrics_snapshot(self) -> dict:
         """Schema-versioned registry export (the shape
@@ -1496,7 +1566,10 @@ class ServeEngine:
         (queues, caches, seed, step index) is untouched."""
         self.metrics.reset()
         self.kv.allocator.reset_peak()
+        if self.kv.registers is not None:
+            self.kv.registers.reset_peak()
         self.kv.pages_scrubbed = 0
+        self.kv.slots_scrubbed = 0
         if self.prefix_cache is not None:
             # cached contents survive the window boundary; only the
             # traffic stats restart

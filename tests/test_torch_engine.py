@@ -10,7 +10,8 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.synthetic import inject_outlier_channels
 from repro_torch.kernels import ops as kops
 from repro_torch.models.transformer import build_model
-from repro_torch.serve.engine import (SCRATCH_PAGE, DenseModelAdapter,
+from repro_torch.serve.engine import (SCRATCH_PAGE, SCRATCH_SLOT,
+                                      DenseModelAdapter,
                                       EngineRequest,
                                       FaultPlan, IntegerModelAdapter,
                                       PageAllocator, PagedKVCache,
@@ -115,8 +116,20 @@ def test_paged_kv_cache_tables_and_scrub():
     with pytest.raises(MemoryError):
         kv.open(1)
         kv.ensure(1, 4 * 6)
-    with pytest.raises(NotImplementedError):
-        PagedKVCache({"kv": _pool(), "register": {"conv": torch.zeros(1)}}, 6, 4)
+    # register state: a slot pool beside the pages, one slot per open
+    # sequence (slot 0 is scratch), scrubbed with the sequence's pages
+    reg = {"conv": torch.ones(2, 3, 5)}
+    both = PagedKVCache({"kv": _pool(), "register": reg}, 6, 4, n_slots=3)
+    both.open(1)
+    both.ensure(1, 4)
+    assert both.slots[1] != SCRATCH_SLOT and both.slot_bytes == 2 * 5 * 4
+    assert both.register_index_array([None, 1]).tolist() == \
+        [SCRATCH_SLOT, both.slots[1]]
+    slot = both.slots[1]
+    both.release(1)
+    assert float(reg["conv"][:, slot].abs().sum()) == 0.0
+    assert float(reg["conv"][:, SCRATCH_SLOT].min()) == 1.0
+    assert both.slots_scrubbed == 1 and both.registers.in_use == 0
 
 
 def test_state_spec_and_unported_paths_raise():
@@ -134,8 +147,9 @@ def test_state_spec_and_unported_paths_raise():
     assert adapter.init_state(5, 4)["kv"]["k"].shape == (2, 5, 4, 2, 32)
     with pytest.raises(TypeError):
         as_servable(object(), {})
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_model(get_config("deepseek-moe-16b").reduced())
+    # every decode-capable family builds now; the integer path stays dense
+    moe = build_model(get_config("deepseek-moe-16b").reduced())
+    assert "moe" in moe.init(gen)["layers"]
     with pytest.raises(ValueError):
         QuantizedDenseLM(get_config("mamba2-1.3b").reduced())
 

@@ -953,6 +953,19 @@ def test_paged_attention_f32_pages_at_the_model_paths_shapes(dev, s, lens):
                     kh=8)
 
 
+@pytest.mark.parametrize("s,lens", [(1, [120, 0, 37, 113]), (32, [128])],
+                         ids=["decode", "prefill"])
+@pytest.mark.parametrize("kh,dh", [(16, 128), (32, 64)],
+                         ids=["deepseek-moe", "zamba2"])
+def test_paged_attention_f32_pages_at_the_families_widths(dev, s, lens, kh, dh):
+    """The MoE and hybrid families' attention through the fake-quant
+    `Model`: f32 queries, one query head per KV head (16 of 128 for
+    deepseek-moe-16b, 32 of 64 for zamba2-1.2b's shared block) over f32
+    pages."""
+    _attention_case(dev, "float", 16, s, 1, dh, lens, 8, None, torch.float32,
+                    kh=kh)
+
+
 def _ptq_inputs(device):
     from repro_torch.core import pipeline as TP
     cfg = get_config("llama3-1b").reduced()
@@ -1036,6 +1049,80 @@ def test_bf16_model_decode_graphed_bit_equal_to_eager(dev):
         assert got[rid].generated == r.generated
         for g, w in zip(got[rid].step_logits, r.step_logits):
             assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b",
+                                  "deepseek-moe-16b"])
+def test_family_decode_graphed_bit_equal_to_eager(dev, arch):
+    """The SSM (register slots), hybrid (register slots and kv pages) and
+    MoE (capacity dispatch, gather combine) families served with each
+    decode step replayed from a captured graph and eagerly: tokens and
+    every step's logits bit-equal, launch counts equal; attention, where
+    the family has it, on the kernel."""
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = build_model(cfg)
+    params = inject_outlier_channels(model.init(gen))
+    runs = []
+    for eager in (True, False):
+        engine = ServeEngine(as_servable(model, params), n_pages=3 * 8 + 1,
+                             page_size=4, max_seqs=3, prefill_chunk=8,
+                             record_logits=True, eager=eager)
+        rng = np.random.default_rng(6)
+        for rid, (n, _) in enumerate(GRAPH_REQUESTS):
+            engine.submit(EngineRequest(
+                rid=rid, prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                sampling=SamplingParams(max_new=12)))
+        kops.reset_kernel_launch_counts()
+        kops.reset_dispatch_counts()
+        done = {r.rid: r for r in engine.run()}
+        torch.cuda.synchronize()
+        engine.check_books()
+        runs.append((engine, done, kops.count_snapshot()))
+    (_, want, c_eager), (graphed, got, c_graph) = runs
+    assert graphed.graph_stats()["graphs"] >= 1
+    assert c_graph == c_eager
+    assert (c_graph[0]["paged_attention"] > 0) == (cfg.family != "ssm")
+    assert not [k for k in c_graph[1] if k[1] == "ref"]
+    assert graphed.kv.registers is None or graphed.kv.registers.in_use == 0
+    for rid, r in want.items():
+        assert got[rid].generated == r.generated
+        for g, w in zip(got[rid].step_logits, r.step_logits):
+            assert np.array_equal(g, w)
+
+
+def test_a_dead_engines_graphs_do_not_break_a_capture(dev):
+    """An engine and its captured calls refer to each other, so a dropped
+    engine's graphs are freed by Python's cycle collector, whenever it
+    runs. With the collector running at nearly every allocation, a second
+    engine's captures must still succeed (a graph destroyed inside a
+    capture would invalidate it) and serve the first engine's tokens."""
+    import gc
+    cfg = get_config("zamba2-1.2b").reduced()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = build_model(cfg)
+    params = model.init(gen)
+    prompts = [list(range(3, 3 + n)) for n, _ in GRAPH_REQUESTS[:3]]
+
+    def serve():
+        engine = ServeEngine(as_servable(model, params), n_pages=3 * 8 + 1,
+                             page_size=4, max_seqs=3, prefill_chunk=8)
+        for rid, p in enumerate(prompts):
+            engine.submit(EngineRequest(rid=rid, prompt=p,
+                                        sampling=SamplingParams(max_new=10)))
+        done = {r.rid: r.generated for r in engine.run()}
+        assert engine.graph_stats()["graphs"] >= 1
+        return done
+
+    first = serve()                  # leaves a dead engine with graphs
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        assert serve() == first
+    finally:
+        gc.set_threshold(*thresholds)
 
 
 def _train_inputs(device):

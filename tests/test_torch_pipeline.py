@@ -197,11 +197,20 @@ def test_pipeline_ordering_matches_paper():
 
 
 def test_other_families_name_queue_a10():
-    model = build_model(get_config("llama3-1b").reduced())
+    """The families of ROADMAP Queue A10 (MoE, SSM, hybrid) quantise now:
+    `rtn_only` on the reduced mamba2 folds the block norms into `in_proj`
+    and rounds every projection (the parity with the reference is
+    `tests/test_torch_families.py`)."""
     cfg = get_config("mamba2-1.3b").reduced()
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_model(cfg)
-    model.cfg = cfg
-    with pytest.raises(NotImplementedError, match="A10"):
-        TP.quantize_model(model, {"lm_head": torch.zeros(1)}, [],
-                          TP.preset("rtn_only"))
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model.init(gen)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 16)))
+    res = TP.quantize_model(model, params, [{"tokens": tokens}],
+                            TP.preset("rtn_only"))
+    assert set(res.hooks) >= {"act_in", "ssm_out_proj_fn"}
+    assert torch.equal(res.params["layers"]["norm"]["scale"],
+                       torch.ones_like(params["layers"]["norm"]["scale"]))
+    assert len(res.report["per_layer"]) == cfg.n_layers
