@@ -80,6 +80,18 @@ on all three paths. Phases print one JSON line each:
              flags and the share of the No-Permute-to-full-vector gap PeRQ
              closes at b = 16; then `examples/serve_quantized` on the card,
              whose attention must run on the kernel alone
+    launch_train  the training entry point: `repro_torch.launch.train` at
+             qwen1.5-0.5b's full size ([4, 512], 2 micro-batches, remat,
+             checkpoints every 4 steps), 4 steps and then 2 resumed from its
+             own step-4 checkpoint (ms per step, tokens/s, peak memory,
+             seconds of each save and the restore, the host's batch draw and
+             the driver's wait for it); the fault-tolerant driver on the
+             paper's surrogate under deterministic algorithms (two fault-free
+             runs, a transient failure, a persistent one: the same params,
+             the restored state equal to its checkpoint); at qwen's size
+             train steps plain, plain while a Prefetcher draws, and with
+             int8 error-feedback compression, in turns, the compression's
+             error bounds, and `compressed_psum` on a one-rank NCCL group
     profile  (only with --profile) where a pure decode step's time goes,
              eager and graphed, without and with the probe
     ptxas    (only with --ptxas) registers, spills and shared memory of
@@ -110,6 +122,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2529,6 +2542,390 @@ def phase_paper():
 
 
 # ---------------------------------------------------------------------------
+# phase: launch_train
+# ---------------------------------------------------------------------------
+
+LAUNCH_ARCH = "qwen1.5-0.5b"
+LAUNCH_BATCH, LAUNCH_SEQ = 4, 512
+LAUNCH_ARGS = ["--arch", LAUNCH_ARCH, "--batch", str(LAUNCH_BATCH),
+               "--seq", str(LAUNCH_SEQ), "--microbatches", "2", "--remat",
+               "--checkpoint-every", "4"]
+LAUNCH_KEEP = 3          # the launcher's CheckpointManager keeps three
+
+
+@contextlib.contextmanager
+def recorded(owner, name: str, into: list, what):
+    """Wrap `owner.name` for the block: each call appends `what(args,
+    result, seconds)` to `into`."""
+    orig = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        into.append(what(args, kwargs, out, time.perf_counter() - t0))
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield into
+    finally:
+        setattr(owner, name, orig)
+
+
+def tree_max_dist(a, b) -> float:
+    from repro_torch.tree import leaves
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def launch_runs(root: Path, model):
+    """(a): the launcher at qwen1.5-0.5b's full size, 4 steps from scratch,
+    then 2 more resumed from its step-4 checkpoint. The driver's step
+    times, the losses, how long the driver waits for each batch, and every
+    save, write and restore are recorded by wrapping their functions for
+    the run."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as LT
+    from repro_torch.runtime import driver as RD
+    from repro_torch.tree import leaves
+    shapes = model.init_shapes()
+    n_params = sum(t.numel() for t in leaves(shapes))
+    ckpt_bytes = sum(t.numel() * t.element_size() for t in leaves(shapes)) \
+        + 2 * 4 * n_params + 4
+    free = shutil.disk_usage(root).free
+    if free < LAUNCH_KEEP * ckpt_bytes * 1.05:
+        fail(f"launch_train: {free / 1e9:.1f} GB free under {root}, the "
+             f"launcher keeps {LAUNCH_KEEP} checkpoints of "
+             f"{ckpt_bytes / 1e9:.2f} GB")
+    work = tempfile.mkdtemp(dir=root, prefix="launch_train.")
+    runs, dts, losses, saves, writes, restores = [], [], [], [], [], []
+
+    def step_factory(*a, **k):
+        step = make_step(*a, **k)
+
+        def with_loss(p, o, b):
+            out = step(p, o, b)
+            losses.append(out[-1]["loss"])
+            return out
+        return with_loss
+
+    def waited(batches, device):
+        """`on_device`, timing how long the driver waits for each batch."""
+        inner = feed(batches, device)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                b = next(inner)
+            except StopIteration:
+                return
+            waits.append((time.perf_counter() - t0) * 1e3)
+            yield b
+
+    make_step, feed, waits = LT.make_train_step, LT.on_device, []
+    try:
+        for steps in (4, 2):
+            state = None
+            torch.cuda.reset_peak_memory_stats()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as st:
+                st.enter_context(recorded(
+                    RD.StepStats, "record", dts,
+                    lambda a, k, out, s: a[2]))
+                st.enter_context(recorded(
+                    CheckpointManager, "save", saves,
+                    lambda a, k, out, s: {"step": a[1], "blocking":
+                                          k.get("blocking", False),
+                                          "return_s": s}))
+                st.enter_context(recorded(
+                    CheckpointManager, "_write", writes,
+                    lambda a, k, out, s: {"step": a[1], "write_s": s}))
+                st.enter_context(recorded(
+                    CheckpointManager, "restore", restores,
+                    lambda a, k, out, s: {"restore_s": s}))
+                LT.make_train_step, LT.on_device = step_factory, waited
+                st.callback(setattr, LT, "make_train_step", make_step)
+                st.callback(setattr, LT, "on_device", feed)
+                st.enter_context(contextlib.redirect_stdout(buf))
+                out = LT.main(LAUNCH_ARGS + ["--steps", str(steps),
+                                             "--workdir", work])
+            torch.cuda.synchronize()
+            runs.append({"steps": steps, "wall_s": time.perf_counter() - t0,
+                         "lines": buf.getvalue().splitlines(),
+                         "end": out["step"],
+                         "ewma_ms": out["driver"].stats.ewma * 1e3,
+                         "failures": out["driver"].failures,
+                         "restores": out["driver"].restores,
+                         "peak_device_memory_gib":
+                             torch.cuda.max_memory_allocated() / 2 ** 30})
+            state = (out["params"], out["opt"])
+            del out
+        step_dir = Path(work) / "ckpt" / "step_000000006"
+        disk = sum(f.stat().st_size for f in step_dir.iterdir())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return state, {"runs": runs, "step_ms": [d * 1e3 for d in dts],
+                   "batch_wait_ms": waits,
+                   "losses": [float(v) for v in losses], "saves": saves,
+                   "writes": writes, "restores": restores,
+                   "checkpoint_gb_on_disk": disk / 1e9,
+                   "checkpoint_gb_expected": ckpt_bytes / 1e9,
+                   "parameters": n_params}
+
+
+def driver_faults(root: Path) -> tuple[dict, list]:
+    """(b): the driver on the card at the surrogate's width, deterministic
+    algorithms on: two fault-free runs, a flaky one (one transient failure),
+    a dying one (three failures in a row with two retries: a restore)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           batch_iterator)
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.paper.common import BENCH_CFG, to_device
+    from repro_torch.runtime.driver import RuntimeConfig, TrainDriver
+    from repro_torch.train.step import TrainConfig, make_train_step
+    from repro_torch.tree import flatten_with_paths
+    cfg = get_config("llama3-1b").reduced(**BENCH_CFG)
+    model = build_model(cfg)
+    it = batch_iterator(SyntheticCorpus(cfg.vocab, seed=0),
+                        DataConfig(cfg.vocab, 64, 16))
+    batches = [to_device(next(it), DEV) for _ in range(12)]
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=8)
+    step = make_train_step(model, opt_cfg, TrainConfig(remat=False))
+    n_steps = 8
+
+    def run(label, fail_on, max_retries):
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(0)
+        params = model.init(gen)
+        opt = adamw.init_state(opt_cfg, params)
+        fed = []
+
+        def faulty(p, o, b):
+            fed.append((p, o))
+            if len(fed) in fail_on:
+                raise RuntimeError("injected device error")
+            return step(p, o, b)
+        mgr = CheckpointManager(str(root / label), keep=2)
+        mgr.save(0, {"params": params, "opt": opt}, blocking=True)
+        driver = TrainDriver(faulty, mgr, RuntimeConfig(
+            checkpoint_every=4, max_retries=max_retries))
+        (p, _), end = driver.run(params, opt, iter(batches),
+                                 num_steps=n_steps)
+        torch.cuda.synchronize()
+        return {"params": p, "end": end, "failures": driver.failures,
+                "restores": driver.restores, "latest": mgr.latest_step(),
+                "fed": fed, "mgr": mgr}
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        r1, r2 = run("free1", set(), 2), run("free2", set(), 2)
+        flaky = run("flaky", {3}, 2)
+        dying = run("dying", {6, 7, 8}, 2)
+    finally:
+        torch.use_deterministic_algorithms(det)
+    d12 = tree_max_dist(r1["params"], r2["params"])
+    d_flaky = [tree_max_dist(flaky["params"], r["params"]) for r in (r1, r2)]
+    # the state handed to the first call after the restore (call 9: steps
+    # 0-4 in calls 1-5, step 5 in 6-8) against the step-4 checkpoint
+    back = dying["mgr"].restore(4)
+    p, o = dying["fed"][8]
+    restored_bits = all(
+        torch.equal(v.cpu(), back["::".join(map(str, path))])
+        for path, v in flatten_with_paths({"params": p, "opt": o}))
+    rec = {"surrogate": "llama3 4 layers, d_model 128, vocab 512, f32",
+           "steps": n_steps, "fault_free_max_dist": d12,
+           "flaky_max_dist_to_fault_free": d_flaky,
+           "flaky": {k: flaky[k] for k in ("end", "failures", "restores",
+                                           "latest")},
+           "dying": {k: dying[k] for k in ("end", "failures", "restores",
+                                           "latest")},
+           "state_after_restore_bit_equal_to_checkpoint": restored_bits}
+    problems = []
+    if not (flaky["end"] == n_steps and flaky["failures"] == 1
+            and flaky["restores"] == 0):
+        problems.append(f"flaky run: {rec['flaky']}")
+    if not min(d_flaky) <= d12:
+        problems.append(f"the flaky run's params lie {d_flaky} from the "
+                        f"fault-free runs', which lie {d12} apart")
+    if not (dying["restores"] >= 1 and dying["end"] == n_steps
+            and dying["latest"] == n_steps):
+        problems.append(f"dying run: {rec['dying']}")
+    if not restored_bits:
+        problems.append("the state after the restore is not the checkpoint")
+    return rec, problems
+
+
+def compression_at_size(model, params, opt,
+                        root: Path) -> tuple[dict, list]:
+    """(c): two train steps at the launcher's size plain, plain while a
+    `Prefetcher` draws batches at this vocab in the background, and with
+    `compress_grads`, in turns; the compression gates on one error-fed
+    gradient; `compressed_psum` on a one-rank NCCL group."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import (DataConfig, Prefetcher,
+                                           SyntheticCorpus, batch_iterator)
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed.context import Mesh, mesh_context
+    from repro_torch.optim import adamw
+    from repro_torch.paper.common import to_device
+    from repro_torch.train.step import TrainConfig, make_train_step
+    from repro_torch.tree import leaves, unflatten
+    cfg = model.cfg
+    dcfg = DataConfig(cfg.vocab, LAUNCH_SEQ, LAUNCH_BATCH)
+    corpus = SyntheticCorpus(cfg.vocab, seed=1)
+    it = batch_iterator(corpus, dcfg)
+    batches = [to_device(next(it), DEV) for _ in range(2)]
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, total_steps=8)
+    steps = {c: make_train_step(model, opt_cfg, TrainConfig(
+        num_microbatches=2, remat=True, compress_grads=c))
+        for c in (False, True)}
+    ef = C.init_ef_state(params)
+    ef_gib = sum(t.numel() * t.element_size() for t in leaves(ef)) / 2 ** 30
+    variants = ("plain", "plain_while_drawing", "compressed")
+    ms = {v: [] for v in variants}
+    for turn in range(2):
+        for v in variants:
+            pf = Prefetcher(batch_iterator(corpus, dcfg), depth=16) \
+                if v == "plain_while_drawing" else None
+            p, o = params, opt
+            for b in batches:
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                out = steps[True](p, o, b, ef) if v == "compressed" \
+                    else steps[False](p, o, b)
+                e.record()
+                torch.cuda.synchronize()
+                ms[v].append(s.elapsed_time(e))
+                p, o = out[0], out[1]
+                if v == "compressed":
+                    ef = out[2]
+                del out
+            del p, o
+            if pf is not None:
+                pf.close()
+    # the gates, on the gradient of one micro-batch (f32, as the step's
+    # accumulator) fed the error of the steps above
+    flat = [t.detach().requires_grad_(True) for t in leaves(params)]
+    loss, _ = model.loss_fn(unflatten(params, flat),
+                            {k: v[:2] for k, v in batches[0].items()},
+                            remat=True)
+    grads = unflatten(params, [g.float() for g in
+                               torch.autograd.grad(loss, flat)])
+    del flat, loss
+    deq, new_ef = C.ef_compress_grads(grads, ef)
+    worst, ef_exact = 0.0, True
+    for g, e, d, n in zip(leaves(grads), leaves(ef), leaves(deq),
+                          leaves(new_ef)):
+        g32 = g + e
+        scale = float(g32.abs().max().clamp_min(1e-30)) / 127
+        slack = float(np.spacing(np.float32(scale * 127)))
+        worst = max(worst, float((d - g32).abs().max()) / (scale / 2 + slack))
+        ef_exact &= torch.equal(n, g32 - d)
+    del grads, deq, new_ef, ef
+    # compressed_psum on a one-rank NCCL group
+    store = root / "nccl_store"
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        x = leaves(params)[-1].detach()
+        with mesh_context(Mesh(np.zeros((1,), int), ("pod",), "cuda")):
+            got = C.compressed_psum(x, "pod")
+        torch.cuda.synchronize()
+        q, s = C._quantize_leaf(x.float())
+        want = (q.float() * s).to(x.dtype)
+        psum_equal = torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()
+    rec = {"step_ms": ms,
+           "ef_state_gib": ef_gib,
+           "max_deq_err_over_half_scale": worst,
+           "new_ef_equals_g32_minus_deq": ef_exact,
+           "compressed_psum_one_rank_nccl": {"shape": list(x.shape),
+                                             "dtype": str(x.dtype),
+                                             "equal": psum_equal}}
+    problems = []
+    if not worst <= 1.0:
+        problems.append(f"|deq - g32| reached {worst} half-scales")
+    if not ef_exact:
+        problems.append("new_ef != g32 - deq")
+    if not psum_equal:
+        problems.append("compressed_psum on one rank is not the "
+                        "quantize-dequantize of its input")
+    return rec, problems
+
+
+def phase_launch_train():
+    """The training entry point on the card: (a) `launch.train` at
+    qwen1.5-0.5b's full size, 4 steps then 2 resumed from its own step-4
+    checkpoint; (b) the fault-tolerant driver under injected faults at the
+    surrogate's width; (c) int8 error-feedback compression at qwen's
+    size."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           batch_iterator)
+    from repro_torch.models.transformer import build_model
+    t_phase = time.perf_counter()
+    secs = {}
+    root = _build.build_dir()
+    root.mkdir(parents=True, exist_ok=True)
+    cfg = get_config(LAUNCH_ARCH)
+    model = build_model(cfg)
+    # the host's batch draw at this vocab, alone
+    it = batch_iterator(SyntheticCorpus(cfg.vocab, seed=0),
+                        DataConfig(cfg.vocab, LAUNCH_SEQ, LAUNCH_BATCH))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        next(it)
+    draw_ms = (time.perf_counter() - t0) * 1e3 / 3
+
+    t0 = time.perf_counter()
+    (params, opt), launch = launch_runs(root, model)
+    secs["launcher"] = time.perf_counter() - t0
+    problems = []
+    lines = [r["lines"] for r in launch["runs"]]
+    if not all(math.isfinite(v) for v in launch["losses"]) \
+            or len(launch["losses"]) != 6:
+        problems.append(f"losses: {launch['losses']}")
+    if "resumed from step 4" not in lines[1]:
+        problems.append(f"run 2 did not resume from step 4: {lines[1]}")
+    if "finished at step 6; failures=0 restores=0" not in lines[1] \
+            or launch["runs"][1]["end"] != 6:
+        problems.append(f"run 2 did not finish at step 6: {lines[1]}")
+    tokens = LAUNCH_BATCH * LAUNCH_SEQ
+    steady = launch["step_ms"][1:4] + launch["step_ms"][5:]
+    launch["tokens_per_s_steady"] = tokens / (np.mean(steady) / 1e3)
+    launch["wall_ms_per_step"] = [r["wall_s"] * 1e3 / r["steps"]
+                                  for r in launch["runs"]]
+    launch["host_ms_per_batch_draw"] = draw_ms
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root, prefix="faults.") as tmp:
+        faults, more = driver_faults(Path(tmp))
+    secs["driver_faults"] = time.perf_counter() - t0
+    problems += more
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root, prefix="compress.") as tmp:
+        comp, more = compression_at_size(model, params, opt, Path(tmp))
+    secs["compression"] = time.perf_counter() - t0
+    problems += more
+    del params, opt
+    torch.cuda.empty_cache()
+    secs["phase"] = time.perf_counter() - t_phase
+    emit("launch_train", ok=not problems,
+         model="qwen1.5-0.5b, 24 layers, d_model 1024, d_ff 2816, 16/16 "
+               "heads of 64, QKV bias, vocab 151936, untied lm_head, bf16, "
+               "seeded", args=LAUNCH_ARGS, seconds=secs, launcher=launch,
+         driver_faults=faults, compression=comp, problems=problems)
+    if problems:
+        fail(f"launch_train phase: {problems}")
+
+# ---------------------------------------------------------------------------
 
 # the case of each kernel that the closing record reports: the shape a
 # decode step of the served model gives it
@@ -2610,6 +3007,7 @@ def main(argv=None):
     phase_families()
     phase_train(args.profile)
     phase_paper()
+    phase_launch_train()
     print(smi, flush=True)
     print(json.dumps(kernel_record(cases, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {

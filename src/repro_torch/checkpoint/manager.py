@@ -17,8 +17,11 @@ reference itself cannot cast them into a target, so only its flat
     returns that tree, each leaf in the target leaf's dtype and on its
     device.
   * saves are asynchronous (background thread) with `wait()` barriers, and
-    a keep-last-k retention policy. Resharded restore waits for the
-    distributed seam (ROADMAP Queue A11b).
+    a keep-last-k retention policy; under a process group of several ranks
+    rank 0 writes and every rank reads.
+  * `restore_sharded(target, shardings)` restores onto a new layout (an
+    elastic restart on a mesh of another shape): each leaf placed by its
+    `distributed.context.NamedSharding`.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..tree import flatten_with_paths, unflatten
+from ..distributed.context import rank_and_world
+from ..tree import flatten_with_paths, leaves, unflatten
 
 Params = Any
 
@@ -129,8 +133,12 @@ class CheckpointManager:
     def save(self, step: int, tree: Params, *, blocking: bool = False):
         """Snapshot `tree`. The device-to-host copy happens now (so the
         caller may change the tensors afterwards); the file write runs in
-        the background, and its error is raised by the next `wait()`."""
+        the background, and its error is raised by the next `wait()`.
+        Under a process group of several ranks, whose replicas hold the
+        same state, only rank 0 writes."""
         self.wait()
+        if rank_and_world()[0] != 0:
+            return
         pairs = flatten_with_paths(tree)
         flat = {_key(p): _to_numpy(t) for p, t in pairs}
         dtypes = {_key(p): _dtype_name(t) for p, t in pairs}
@@ -187,3 +195,13 @@ class CheckpointManager:
                                  f"{tuple(t.shape)} vs {tuple(leaf.shape)}")
             out.append(t.to(device=leaf.device, dtype=leaf.dtype))
         return unflatten(target, out)
+
+    def restore_sharded(self, target: Params, shardings: Params,
+                        step: int | None = None) -> Params:
+        """Restore and place with NEW shardings (elastic restart across a
+        different mesh shape): on a one-device mesh each leaf moves to the
+        device, on a mesh of ranks it becomes a DTensor with the placements
+        its spec names."""
+        host = self.restore(step, target=target)
+        return unflatten(host, [s.place(t) for t, s in
+                                zip(leaves(host), leaves(shardings))])

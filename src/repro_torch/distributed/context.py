@@ -1,0 +1,215 @@
+"""Mesh context + logical-axis sharding annotations (MaxText-style).
+
+Models annotate activations with *logical* axis names; the rules below map
+them to mesh axes. Outside a mesh context, and on a one-device mesh, the
+annotations are no-ops, so the same model code runs on one card and on a
+mesh of ranks.
+
+The rules read only a mesh's `axis_names` and the shape of its `devices`
+grid, so any object with those two attributes feeds them (a test's stand-in
+as well as `Mesh`). A `PartitionSpec` holds one entry per tensor dimension:
+None (replicated), a mesh-axis name, or a tuple of names (the dimension
+split over those axes, the first one major). `NamedSharding` pairs a mesh
+with a spec and places a tensor by it: on a one-device mesh that is a move
+to the device; on a mesh of several ranks a `torch.distributed.tensor`
+DTensor with one placement per mesh axis.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+
+import numpy as np
+import torch
+
+__all__ = ["mesh_context", "current_mesh", "logical_to_spec", "shard_act",
+           "AXIS_RULES", "Mesh", "NamedSharding", "PartitionSpec", "P",
+           "rank_and_world"]
+
+_LOCAL = threading.local()
+
+# logical axis → mesh axes (None = replicated). The "pod" axis extends data
+# parallelism across pods; "fsdp_axes" is where ZeRO-3 weight shards live.
+AXIS_RULES: dict[str, tuple[str, ...] | str | None] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "seq_shard": ("data",),        # sequence parallelism for long-context
+    "embed": None,
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "ssm_heads": "model",
+    "ssm_state": None,
+    "fsdp": ("pod", "data"),       # weight non-model dim for ZeRO-3 archs
+    "kv_len": None,
+    "kv_cache_seq": "model",       # sequence-sharded KV cache (flash-decode)
+}
+
+
+class PartitionSpec(tuple):
+    """Per tensor dimension: None, a mesh-axis name or a tuple of names.
+    Dimensions past the last entry are replicated. As in JAX, a list of
+    names is a tuple, one name alone stands for itself and none for None."""
+
+    def __new__(cls, *entries):
+        def norm(e):
+            if isinstance(e, (list, tuple)):
+                e = tuple(e)
+                return None if not e else e[0] if len(e) == 1 else e
+            return e
+        return super().__new__(cls, (norm(e) for e in entries))
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+class Mesh:
+    """A grid of `torch.distributed` ranks with named axes.
+
+    `devices` holds the ranks (any array shape, one dimension per axis);
+    `device_type` is "cuda" or "cpu". Each rank computes on its current
+    device. The `DeviceMesh` and the per-axis process groups are made on
+    first use, once a process group is initialised."""
+
+    def __init__(self, devices, axis_names, device_type: str = "cuda"):
+        self.devices = np.asarray(devices)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"a {self.devices.shape} grid cannot take the "
+                             f"axes {self.axis_names}")
+        self.device_type = device_type
+        self._device_mesh = None
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def local_device(self) -> torch.device:
+        if self.device_type == "cpu":
+            return torch.device("cpu")
+        return torch.device(self.device_type, torch.cuda.current_device())
+
+    def device_mesh(self):
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+            self._device_mesh = DeviceMesh(
+                self.device_type, torch.as_tensor(self.devices),
+                mesh_dim_names=self.axis_names)
+        return self._device_mesh
+
+    def group(self, axis: str):
+        """The process group of the ranks along mesh axis `axis`."""
+        return self.device_mesh().get_group(axis)
+
+
+def rank_and_world() -> tuple[int, int]:
+    """This process's rank and the world size of the initialised
+    `torch.distributed` process group; (0, 1) without one."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def placements(self) -> list:
+        """One DTensor placement per mesh axis: `Shard(d)` where tensor
+        dimension d names the axis, else `Replicate()`."""
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for name in self.mesh.axis_names:
+            dims = [d for d, e in enumerate(self.spec)
+                    if e == name or (isinstance(e, tuple) and name in e)]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return out
+
+    def place(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` laid out by this sharding: on the mesh's one device, or as a
+        DTensor over its ranks (every rank passes the whole tensor)."""
+        t = t.to(self.mesh.local_device)
+        if self.mesh.size == 1:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, self.mesh.device_mesh(),
+                                 self.placements())
+
+
+def mesh_axis_size(name: str) -> int:
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    return sizes.get(name, 1)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh: Mesh | None, rules: dict | None = None):
+    """Enter a mesh (+ optional axis-rule overrides, e.g. the serving
+    layout replicates 'batch' and spreads 'kv_cache_seq' over every axis)."""
+    prev = getattr(_LOCAL, "mesh", None)
+    prev_rules = getattr(_LOCAL, "rules", None)
+    _LOCAL.mesh = mesh
+    _LOCAL.rules = dict(AXIS_RULES, **(rules or {}))
+    try:
+        yield mesh
+    finally:
+        _LOCAL.mesh = prev
+        _LOCAL.rules = prev_rules
+
+
+def current_mesh() -> Mesh | None:
+    return getattr(_LOCAL, "mesh", None)
+
+
+def current_rules() -> dict:
+    return getattr(_LOCAL, "rules", None) or AXIS_RULES
+
+
+def _resolve(axis: str | None, mesh: Mesh) -> tuple[str, ...] | str | None:
+    if axis is None:
+        return None
+    rule = current_rules().get(axis, None)
+    if rule is None:
+        return None
+    names = set(mesh.axis_names)
+    if isinstance(rule, str):
+        return rule if rule in names else None
+    picked = tuple(r for r in rule if r in names)
+    return picked if picked else None
+
+
+def logical_to_spec(logical: tuple[str | None, ...], mesh: Mesh) -> P:
+    return P(*[_resolve(a, mesh) for a in logical])
+
+
+def shard_act(x: torch.Tensor, logical: tuple[str | None, ...]):
+    """Lay `x` out by logical axis names: a no-op without a mesh or on a
+    one-device mesh; a DTensor is redistributed to the spec's placements.
+    A plain tensor on a mesh of ranks is each rank's own replica and stays
+    as it is."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size == 1:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    spec = logical_to_spec(logical, mesh)
+    return x.redistribute(mesh.device_mesh(),
+                          NamedSharding(mesh, spec).placements())

@@ -63,6 +63,15 @@ def _stack(nodes: list):
     return torch.stack(nodes)
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator that reports the meta device, so `Model.init` draws
+    nothing and builds meta tensors."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 class Model:
     """Functional model wrapper for one ArchConfig."""
 
@@ -147,6 +156,12 @@ class Model:
             p["frontend_proj"] = L._normal(gen, (fdim, cfg.d_model),
                                            fdim ** -0.5, dt)
         return p
+
+    def init_shapes(self) -> Params:
+        """The parameter tree as meta tensors: every leaf's shape and
+        dtype, no storage (the reference's `jax.eval_shape(model.init,
+        key)`)."""
+        return self.init(_MetaGenerator())
 
     # ------------------------------------------------------------------
     # Blocks

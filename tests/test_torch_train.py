@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro.configs.registry import get_config as jax_get_config
+from repro.distributed import compression as JCOMP
 from repro.models.transformer import build_model as jax_build
 from repro.optim import adamw as jadamw
 from repro.train.step import TrainConfig as JTrainConfig
@@ -28,6 +29,7 @@ from repro.train.step import make_train_step as jax_make_train_step
 from repro_torch import interop
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticCorpus, batch_iterator
+from repro_torch.distributed import compression as TC
 from repro_torch.models.transformer import build_model
 from repro_torch.optim import adamw
 from repro_torch.train.step import TrainConfig, make_eval_step, make_train_step
@@ -136,8 +138,8 @@ def dense():
                 states=[(jp, opt0), (p1, opt1), (p2, opt2)], metrics=[m1, m2])
 
 
-@pytest.mark.parametrize("arch", ["llama3-1b", "internvl2-2b",
-                                  "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["llama3-1b", "qwen1.5-0.5b",
+                                  "internvl2-2b", "hubert-xlarge"])
 def test_loss_fn_matches_the_reference(arch):
     jcfg, jm, jp, tm, tp = bridged(arch)
     batch = batch_for(jcfg, np.random.default_rng(0), 2, 16)
@@ -304,7 +306,86 @@ def test_bf16_moments(dense):
     assert_tree_close(to1["m"], jo1["m"], frac=2 ** -7)
 
 
-def test_compress_grads_is_queued():
-    with pytest.raises(NotImplementedError, match="A11b"):
-        make_train_step(None, adamw.AdamWConfig(),
-                        TrainConfig(compress_grads=True))
+def test_compressed_step_returns_the_ef_state_only_when_given_one(dense):
+    step = make_train_step(dense["tm"], adamw.AdamWConfig(**OPT),
+                           TrainConfig(remat=False, compress_grads=True))
+    opt = adamw.init_state(adamw.AdamWConfig(**OPT), dense["tp"])
+    batch = to_torch(dense["batches"][0])
+    assert len(step(dense["tp"], opt, batch)) == 3
+    out = step(dense["tp"], opt, batch, TC.init_ef_state(dense["tp"]))
+    assert len(out) == 4 and "loss" in out[3]
+    assert all(e.dtype == torch.float32 for e in leaves(out[2]))
+
+
+@pytest.fixture(scope="module")
+def compressed(dense):
+    """The reference's two train steps with int8 error-feedback
+    compression, the state after each, and its gradient at each step."""
+    opt_cfg = jadamw.AdamWConfig(**OPT)
+    step = jax.jit(jax_make_train_step(
+        dense["jm"], opt_cfg, JTrainConfig(remat=False, compress_grads=True)))
+    jp, opt0 = dense["jp"], jadamw.init_state(opt_cfg, dense["jp"])
+    ef0 = JCOMP.init_ef_state(jp)
+    p1, o1, ef1, m1 = step(jp, opt0, dense["batches"][0], ef0)
+    p2, o2, ef2, m2 = step(p1, o1, dense["batches"][1], ef1)
+    grad = jax.jit(jax.grad(lambda p, b: dense["jm"].loss_fn(p, b)[0]))
+    return dict(states=[(jp, opt0, ef0), (p1, o1, ef1), (p2, o2, ef2)],
+                metrics=[m1, m2],
+                grads=[dense["g0"], grad(p1, dense["batches"][1])])
+
+
+def near_ties(grads, ef):
+    """Per leaf, where the reference's error-fed gradient lies within
+    LEAF_FRAC of its largest magnitude of a rounding tie of the int8
+    codes: there the port's gradient may round to the neighbouring code."""
+    out, errs = {}, jax_paths(ef)
+    for path, g in jax_paths(grads).items():
+        g32 = g.astype(np.float32) + errs[path]
+        scale = max(float(np.abs(g32).max()), 1e-30) / 127
+        u = np.abs(g32) / scale
+        out[path] = np.abs(u - np.floor(u) - 0.5) <= 127 * LEAF_FRAC
+    return out
+
+
+@pytest.mark.parametrize("i", [0, 1])
+def test_compressed_step_matches_the_reference(dense, compressed, i):
+    """Step i + 1 from the reference's state after step i: updated params
+    as `assert_step_close` holds them, with an element whose code may fall
+    the other way at a tie counted with the noise; the new error within
+    LEAF_FRAC of the error-fed gradient's largest magnitude, or of one code
+    step at such a tie."""
+    jp, jopt, jef = compressed["states"][i]
+    want_p, _, want_ef = compressed["states"][i + 1]
+    want = compressed["metrics"][i]
+    grads = compressed["grads"][i]
+    step = make_train_step(dense["tm"], adamw.AdamWConfig(**OPT),
+                           TrainConfig(remat=False, compress_grads=True))
+    tp, to, tef, m = step(interop.tree_from_numpy(np_tree(jp), "cpu"),
+                          interop.opt_state_from_jax(np_tree(jopt), "cpu"),
+                          to_torch(dense["batches"][i]),
+                          interop.tree_from_numpy(np_tree(jef), "cpu"))
+    np.testing.assert_allclose(float(m["loss"]), float(want["loss"]),
+                               rtol=LOSS_REL)
+    np.testing.assert_allclose(float(m["lr"]), float(want["lr"]), rtol=1e-6)
+    ties = near_ties(grads, jef)
+    # the grad norm: rel 1e-6, plus one code step at every tie
+    steps = sum(int(t.sum()) * (np.abs(g.astype(np.float32)
+                                       + jax_paths(jef)[p]).max() / 127) ** 2
+                for (p, g), t in zip(jax_paths(grads).items(), ties.values()))
+    assert abs(float(m["grad_norm"]) - float(want["grad_norm"])) <= \
+        1e-6 * float(want["grad_norm"]) + np.sqrt(steps)
+    # an element at a tie counts as noise (a gradient that is not zero but
+    # below 1e-4 of the leaf's largest)
+    masked = jax.tree_util.tree_map_with_path(
+        lambda p, g: np.where(ties[tuple(getattr(k, "key", k) for k in p)],
+                              1e-30, np.asarray(g)), grads)
+    assert_step_close(tp, want_p, masked, float(want["lr"]))
+    got_ef = dict(flatten_with_paths(tef))
+    for path, w in jax_paths(want_ef).items():
+        g = np.abs(jax_paths(grads)[path].astype(np.float32)
+                   + jax_paths(jef)[path]).max()
+        diff = np.abs(got_ef[path].numpy() - w)
+        tie = ties[path]
+        assert diff[~tie].max(initial=0.0) <= LEAF_FRAC * g, path
+        assert diff[tie].max(initial=0.0) <= (1 + LEAF_FRAC) * g / 127, path
+    assert int(to["step"]) == i + 1
