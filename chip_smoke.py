@@ -92,6 +92,16 @@ on all three paths. Phases print one JSON line each:
              train steps plain, plain while a Prefetcher draws, and with
              int8 error-feedback compression, in turns, the compression's
              error bounds, and `compressed_psum` on a one-rank NCCL group
+    dryrun   the dry run (`repro_torch.launch.dryrun`: meta tensors over a
+             fake world of 256 or 512 ranks) of llama3-1b and qwen1.5-0.5b
+             over every shape on both production meshes and their integer
+             decode, in processes that see no card, every cell ok; the
+             card's achieved bf16 GEMM and copy rates beside the roofline's
+             datasheet figures; the train phase's step counted on one rank
+             against the real step (FLOPs op by op against FlopCounterMode,
+             argument + temp bytes within 20 % of the peak allocation, the
+             step no faster than its roofline) and the integer decode step
+             (batch 4, 128 cached positions) no faster than its roofline
     profile  (only with --profile) where a pure decode step's time goes,
              eager and graphed, without and with the probe
     ptxas    (only with --ptxas) registers, spills and shared memory of
@@ -2926,6 +2936,275 @@ def phase_launch_train():
         fail(f"launch_train phase: {problems}")
 
 # ---------------------------------------------------------------------------
+# phase: dryrun
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCHS = ("llama3-1b", "qwen1.5-0.5b")
+DRYRUN_TIMEOUT_S = 400
+DECODE_BATCH, DECODE_CACHE = 4, 128
+RATE_GEMM = 8192
+RATE_COPY_BYTES = 2 ** 30
+
+
+def dryrun_commands(out: Path) -> dict:
+    """The dry-run processes of the phase: both archs over every shape on
+    both production meshes, their integer decode, and the two cells held
+    against real steps on one rank (the train phase's step; the integer
+    decode step at batch 4 on a 128-position dense cache)."""
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+            str(out)]
+    cmds = {}
+    for arch in DRYRUN_ARCHS:
+        for pod in ("single", "multi"):
+            cmds[f"{arch}/{pod}"] = base + ["--arch", arch, "--multi-pod",
+                                            pod]
+        cmds[f"{arch}/quantized"] = base + [
+            "--arch", arch, "--shape", "decode_32k", "--multi-pod", "both",
+            "--quantized-serve", "--tag", "q"]
+    cmds["check/train"] = base + [
+        "--arch", "llama3-1b", "--shape", "train_4k", "--mesh", "1,1",
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--microbatches", str(TRAIN_MICRO), "--tag", "check"]
+    cmds["check/decode"] = base + [
+        "--arch", "llama3-1b", "--shape", "decode_32k", "--mesh", "1,1",
+        "--batch", str(DECODE_BATCH), "--seq", str(DECODE_CACHE),
+        "--quantized-serve", "--tag", "check"]
+    return cmds
+
+
+def measured_rates() -> dict:
+    """The achieved dense bf16 GEMM rate (8192^3) and device-to-device copy
+    rate (1 GiB, read + write), beside the roofline's datasheet figures."""
+    from repro_torch.launch import roofline as R
+    n = RATE_GEMM
+    g = torch.Generator(device=DEV)
+    g.manual_seed(0)
+    a = torch.randn(n, n, device=DEV, dtype=torch.bfloat16, generator=g)
+    b = torch.randn(n, n, device=DEV, dtype=torch.bfloat16, generator=g)
+    gemm_ms = time_ms([lambda: a @ b], 20)
+    src = torch.empty(RATE_COPY_BYTES, dtype=torch.uint8, device=DEV)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms([lambda: dst.copy_(src)], 20)
+    del a, b, src, dst
+    torch.cuda.empty_cache()
+    gemm = 2.0 * n ** 3 / (gemm_ms / 1e3)
+    copy = 2.0 * RATE_COPY_BYTES / (copy_ms / 1e3)
+    return {"gemm_bf16_flops_s": gemm, "gemm_ms": gemm_ms,
+            "datasheet_bf16_flops_s": R.PEAK_FLOPS,
+            "gemm_share_of_datasheet": gemm / R.PEAK_FLOPS,
+            "copy_bytes_s": copy, "copy_ms": copy_ms,
+            "datasheet_hbm_bytes_s": R.HBM_BW,
+            "copy_share_of_datasheet": copy / R.HBM_BW,
+            "link_bytes_s_datasheet": R.LINK_BW}
+
+
+def roofline_ms(rec: dict) -> tuple[float, float]:
+    """(max(compute, memory) term, collective term) of a record, ms."""
+    from repro_torch.launch import roofline as R
+    row = R.roofline_row(rec)
+    return max(row["t_compute_s"], row["t_memory_s"]) * 1e3, \
+        row["t_collective_s"] * 1e3
+
+
+def check_train_count(rec: dict) -> tuple[dict, list]:
+    """The train phase's step (llama3-1b full size, [4, 512], 2
+    micro-batches, remat) on the card against its dry-run count: FLOPs
+    op by op against FlopCounterMode on the real step, argument + temp
+    bytes against the step's peak allocation, the measured step time
+    against the roofline."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainConfig, make_train_step
+    problems = []
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cfg = get_config("llama3-1b")
+    model = build_model(cfg)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(0)
+    params = model.init(g)
+    opt_cfg = adamw.AdamWConfig()
+    opt = adamw.init_state(opt_cfg, params)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         device=DEV, generator=g, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    step = make_train_step(model, opt_cfg, TrainConfig(
+        num_microbatches=TRAIN_MICRO, remat=True))
+    out = step(params, opt, batch)            # warm-up
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(params, opt, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        del out
+    peak = torch.cuda.max_memory_allocated() - base
+    with FlopCounterMode(display=False) as fc:
+        out = step(params, opt, batch)
+    del out
+    real = {str(k).split(".")[-1]: float(v)
+            for k, v in fc.get_flop_counts()["Global"].items()}
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    counted = {k: float(v)
+               for k, v in rec["hlo_costs"]["flops_by_op"].items() if v}
+    differ = {k: {"dry_run": counted.get(k, 0.0), "card": real.get(k, 0.0)}
+              for k in sorted(set(real) | set(counted))
+              if counted.get(k, 0.0) != real.get(k, 0.0)}
+    flops_real = sum(real.values())
+    if differ:
+        problems.append(f"train FLOPs differ op by op: {differ}")
+    mem = rec["memory"]
+    predicted = mem["argument_size_bytes"] + mem["temp_size_bytes"]
+    if not 0.8 <= predicted / peak <= 1.2:
+        problems.append(f"train memory: dry run {predicted} B against a "
+                        f"peak of {peak} B on the card")
+    step_ms = float(np.median(times))
+    bound_ms, coll_ms = roofline_ms(rec)
+    if step_ms < bound_ms:
+        problems.append(f"train step {step_ms:.3f} ms below its roofline "
+                        f"{bound_ms:.3f} ms: the count is wrong")
+    return {"flops_dry_run": rec["hlo_costs"]["flops_per_device"],
+            "flops_card": flops_real, "ops_that_differ": differ,
+            "argument_plus_temp_bytes": predicted, "peak_bytes_card": peak,
+            "memory_ratio": predicted / peak, "step_ms": times,
+            "step_ms_median": step_ms, "roofline_ms": bound_ms,
+            "collective_ms": coll_ms,
+            "measured_over_roofline": step_ms / bound_ms}, problems
+
+
+def check_decode_count(rec: dict) -> tuple[dict, list]:
+    """llama3-1b's integer decode step (random weights packed to int4, bf16
+    dense cache of 128 positions, batch 4, every row at position 127) on
+    the card against the roofline of its dry-run count: its device time
+    (the step replayed from a CUDA graph), and its eager time."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serve.quantized import QuantizedDenseLM, pack_dense_params
+    problems = []
+    cfg = get_config("llama3-1b")
+    g = torch.Generator(device=DEV)
+    g.manual_seed(1)
+    params = pack_dense_params(build_model(cfg).init(g), cfg)
+    torch.cuda.empty_cache()
+    qlm = QuantizedDenseLM(cfg, block_size=32)
+    cache = qlm.init_cache(DECODE_BATCH, DECODE_CACHE, device=DEV)
+    tokens = torch.randint(0, cfg.vocab, (DECODE_BATCH, 1), device=DEV,
+                           generator=g, dtype=torch.int32)
+    index = torch.full((DECODE_BATCH,), DECODE_CACHE - 1, device=DEV,
+                       dtype=torch.int32)
+    before = kops.count_snapshot()
+    logits, _ = qlm.decode_step(params, tokens, cache, index)
+    torch.cuda.synchronize()
+    _, dispatch = kops.counts_since(before)
+    for entry in ("quantize_act", "int4_matmul", "hadamard_quant"):
+        if not dispatch.get((entry, "kernels")):
+            problems.append(f"decode did not launch {entry}'s kernel")
+    if not bool(torch.isfinite(logits).all()):
+        problems.append("decode logits not finite")
+    step = [lambda: qlm.decode_step(params, tokens, cache, index)]
+    eager_ms = time_ms(step, 20)
+    step_ms = device_ms(step)        # one CUDA graph replay: device time
+    del params, cache, step
+    torch.cuda.empty_cache()
+    bound_ms, _ = roofline_ms(rec)
+    if step_ms < bound_ms:
+        problems.append(f"decode step {step_ms:.4f} ms below its roofline "
+                        f"{bound_ms:.4f} ms: the count is wrong")
+    hc = rec["hlo_costs"]
+    return {"flops_dry_run": hc["flops_per_device"],
+            "bytes_dry_run": hc["bytes_per_device"],
+            "kernel_ops": hc["kernel_ops"], "step_ms": step_ms,
+            "eager_step_ms": eager_ms,
+            "roofline_ms": bound_ms,
+            "measured_over_roofline": step_ms / bound_ms,
+            "dispatch": {f"{k[0]}.{k[1]}": v
+                         for k, v in dispatch.items()}}, problems
+
+
+def phase_dryrun():
+    """The dry run (`repro_torch.launch.dryrun`, meta tensors over a fake
+    world of 256 or 512 ranks, no card) for llama3-1b and qwen1.5-0.5b on
+    both production meshes, in processes of their own that see no card,
+    while the card measures its GEMM and copy rates; then two counts held
+    against real steps on one rank."""
+    from repro_torch.launch import roofline as R
+    t0 = time.perf_counter()
+    out = _build.build_dir() / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT)
+             for name, cmd in dryrun_commands(out).items()}
+    problems = []
+    try:
+        rates = measured_rates()
+        logs = {}
+        for name, p in procs.items():
+            try:
+                logs[name] = p.communicate(timeout=max(
+                    1, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs[name] = p.communicate()[0]
+                problems.append(f"dry run {name} timed out")
+            if p.returncode != 0:
+                problems.append(f"dry run {name} exited {p.returncode}: "
+                                f"{logs[name][-2000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dry_s = time.perf_counter() - t0
+    recs = {f.name: json.loads(f.read_text()) for f in sorted(out.glob("*.json"))}
+    cells, rows = {}, []
+    for fname, rec in recs.items():
+        if "__check" in fname:
+            continue
+        cells[fname] = {"status": rec["status"], "seconds": rec.get("lower_s"),
+                        "reason": rec.get("reason")}
+        if rec["status"] == "fail" or (
+                rec["status"] == "skipped" and rec["shape"] != "long_500k"):
+            problems.append(f"dry-run cell {fname}: {rec['status']}")
+        row = R.roofline_row(rec)
+        if row is not None:
+            rows.append({**row, "quantized": rec["quantized_serve"],
+                         "collectives": rec["collectives"]["count_by_kind"]})
+    expected = 2 * len(DRYRUN_ARCHS) * 4 + 2 * len(DRYRUN_ARCHS) + 2
+    if len(recs) != expected:
+        problems.append(f"{len(recs)} dry-run records, {expected} expected")
+    t1 = time.perf_counter()
+    checks = {}
+    if not problems:
+        checks["train"], more = check_train_count(
+            recs["llama3-1b__train_4k__sp__check.json"])
+        problems += more
+        checks["decode"], more = check_decode_count(
+            recs["llama3-1b__decode_32k__sp__check.json"])
+        problems += more
+    emit("dryrun", ok=not problems, rates=rates, cells=cells, roofline=rows,
+         checks=checks,
+         seconds={"dry_run_processes": dry_s,
+                  "checks": time.perf_counter() - t1,
+                  "phase": time.perf_counter() - t0},
+         problems=problems)
+    if problems:
+        fail(f"dryrun phase: {problems}")
+
+# ---------------------------------------------------------------------------
 
 # the case of each kernel that the closing record reports: the shape a
 # decode step of the served model gives it
@@ -3008,6 +3287,7 @@ def main(argv=None):
     phase_train(args.profile)
     phase_paper()
     phase_launch_train()
+    phase_dryrun()
     print(smi, flush=True)
     print(json.dumps(kernel_record(cases, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,9 @@ import torch
 
 __all__ = ["mesh_context", "current_mesh", "logical_to_spec", "shard_act",
            "AXIS_RULES", "Mesh", "NamedSharding", "PartitionSpec", "P",
-           "rank_and_world"]
+           "rank_and_world", "on_mesh", "with_axis", "local_offset",
+           "local_shard", "local_to_dtensor", "reduce_over",
+           "gather_weights"]
 
 _LOCAL = threading.local()
 
@@ -201,15 +203,161 @@ def logical_to_spec(logical: tuple[str | None, ...], mesh: Mesh) -> P:
 
 def shard_act(x: torch.Tensor, logical: tuple[str | None, ...]):
     """Lay `x` out by logical axis names: a no-op without a mesh or on a
-    one-device mesh; a DTensor is redistributed to the spec's placements.
-    A plain tensor on a mesh of ranks is each rank's own replica and stays
-    as it is."""
+    one-device mesh; a DTensor is redistributed to the spec's placements,
+    a dimension that its axes do not divide replicated (as the parameter
+    and batch shardings do). A plain tensor on a mesh of ranks is each
+    rank's own replica and stays as it is."""
     mesh = current_mesh()
     if mesh is None or mesh.size == 1:
         return x
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    spec = logical_to_spec(logical, mesh)
+    from .shardings import _fit
+    spec = _fit(logical_to_spec(logical, mesh), x.shape, mesh)
     return x.redistribute(mesh.device_mesh(),
                           NamedSharding(mesh, spec).placements())
+
+
+# ---------------------------------------------------------------------------
+# Local code on a mesh of ranks
+#
+# Where DTensor's sharding propagation has no rule for an op, or would
+# gather a whole operand where XLA's partitioner keeps it sharded, the
+# models run the step on each rank's shards: `with_axis` lays an operand
+# out (the collective that costs is issued there), `local_shard` takes
+# this rank's shard, `local_offset` says where it starts, `reduce_over`
+# combines partial results across an axis, `local_to_dtensor` wraps the
+# local result again and `gather_weights` gathers ZeRO-3 weights for one
+# use. Every one of them is differentiable. The one-device path never
+# reaches them (`on_mesh` is False there).
+# ---------------------------------------------------------------------------
+
+def on_mesh(x) -> bool:
+    """Whether `x` is a DTensor inside a mesh of several ranks."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size == 1:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _axis_index(axis: str) -> int | None:
+    names = current_mesh().axis_names
+    return names.index(axis) if axis in names else None
+
+
+def with_axis(t, axis: str, placement):
+    """`t` redistributed so that mesh axis `axis` holds `placement`, the
+    other axes as they were (unchanged when the mesh has no such axis)."""
+    i = _axis_index(axis)
+    if i is None or t.placements[i] == placement:
+        return t
+    pl = list(t.placements)
+    pl[i] = placement
+    return t.redistribute(t.device_mesh, pl)
+
+
+def gather_weights(p: dict) -> dict:
+    """A layer's weights for one use on a mesh of ranks: each split over
+    the data axes (ZeRO-3) gathered whole on them, as a ZeRO-3 step
+    gathers a layer's weights before it runs it (and reduce-scatters
+    their gradients after); the model axis's split stays. The weights as
+    they are off a mesh."""
+    if not any(on_mesh(w) for w in p.values()):
+        return p
+
+    def gather(w):
+        for ax in ("pod", "data"):
+            w = with_axis(w, ax, Replicate())
+        return w
+
+    from torch.distributed.tensor import Replicate
+    return {k: gather(w) if on_mesh(w) else w for k, w in p.items()}
+
+
+def local_offset(t, dim: int) -> int:
+    """Where this rank's shard of DTensor `t` starts along `dim`."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    _, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return int(offset[dim])
+
+
+def local_shard(t) -> torch.Tensor:
+    """This rank's shard of DTensor `t`, to be consumed by this rank's own
+    share of the work: along every axis where `t` is replicated, the ranks'
+    gradients of it are partial sums, and they are added up on the way
+    back (DTensor would take each rank's for the whole gradient)."""
+    from torch.distributed.tensor import Partial, Replicate
+    return t.to_local(grad_placements=[
+        Partial() if isinstance(p, Replicate) else p for p in t.placements])
+
+
+def local_to_dtensor(local: torch.Tensor, like, global_shape=None,
+                     placements=None):
+    """A DTensor over `like`'s mesh from this rank's shard `local`, laid out
+    by `placements` (default `like`'s), of `global_shape` (default: the
+    local shape scaled up along each sharded dimension)."""
+    from torch.distributed.tensor import DTensor, Shard
+    placements = list(placements or like.placements)
+    if global_shape is None:
+        global_shape = list(local.shape)
+        for size, p in zip(like.device_mesh.shape, placements):
+            if isinstance(p, Shard):
+                global_shape[p.dim] *= size
+    stride = [1] * len(global_shape)
+    for d in range(len(global_shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * global_shape[d + 1]
+    return DTensor.from_local(local, like.device_mesh, placements,
+                              run_check=False, shape=torch.Size(global_shape),
+                              stride=tuple(stride))
+
+
+def _all_reduce(local: torch.Tensor, like, axes, op: str):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    names = current_mesh().axis_names
+    keep = [p if isinstance(p, Shard) and p.dim < local.dim()
+            and a not in axes else Replicate()
+            for a, p in zip(names, like.placements)]
+    part = [Partial(op) if a in axes else p for a, p in zip(names, keep)]
+    shape = list(local.shape)
+    for size, p in zip(like.device_mesh.shape, keep):
+        if isinstance(p, Shard):
+            shape[p.dim] *= size
+    dt = local_to_dtensor(local, like, shape, part)
+    return dt.redistribute(like.device_mesh, keep).to_local()
+
+
+class _Reduce(torch.autograd.Function):
+    """An all-reduce whose backward passes the gradient on as it comes
+    (each rank's consumer of the result computes the same thing, so its
+    gradient is already the whole one), or all-reduces it too
+    (`split_consumers`: each rank consumes the result with its own shard,
+    so the gradients are partial)."""
+
+    @staticmethod
+    def forward(ctx, local, like, axes, op, split_consumers):
+        ctx.like, ctx.axes, ctx.split = like, axes, split_consumers
+        return _all_reduce(local, like, axes, op)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.split:
+            grad = _all_reduce(grad, ctx.like, ctx.axes, "sum")
+        return grad, None, None, None, None
+
+
+def reduce_over(local: torch.Tensor, like, axes, op: str = "sum", *,
+                split_consumers: bool = False):
+    """This rank's partial `local` combined with every rank's along the
+    mesh axis or axes `axes` (an all-reduce; on the other axes `local`
+    keeps `like`'s placements where it has the dimension): the combined
+    local tensor. Differentiable, see `_Reduce`."""
+    names = current_mesh().axis_names
+    axes = tuple(a for a in ((axes,) if isinstance(axes, str) else axes)
+                 if a in names)
+    if not axes:
+        return local
+    return _Reduce.apply(local, like, axes, op, split_consumers)

@@ -3,7 +3,9 @@
 This module is the only kernel API the serving path uses. The rule: a
 tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written kernel or raises - there is no fallback from a
-failed build or launch to the plain version. `use_kernels(False)` is an
+failed build or launch to the plain version; a meta tensor takes a
+shape-only path that builds and launches nothing (`_on_meta`: the dry
+run's count). `use_kernels(False)` is an
 explicit scope that forces the plain versions on any device; the tests and
 the on-card comparison phases of `chip_smoke.py` use it, nothing else does.
 
@@ -117,13 +119,39 @@ def use_kernels(enabled: bool):
 
 def _on_kernel(t: torch.Tensor) -> bool:
     """Whether a call on `t` launches the kernel: always for a tensor that
-    does not lie on the CPU, unless a `use_kernels(False)` scope is open."""
-    return kernels_enabled() and t.device.type != "cpu"
+    lies on a card, unless a `use_kernels(False)` scope is open."""
+    return kernels_enabled() and t.device.type not in ("cpu", "meta")
+
+
+def _on_meta(t: torch.Tensor) -> bool:
+    """Whether a call on `t` takes the shape-only path: a meta tensor (or a
+    DTensor of meta shards) outside a `use_kernels(False)` scope. It
+    returns meta outputs of the kernel's shapes, builds and launches
+    nothing, and inside `launch.hlo_analysis.analyze_step` counts as one op
+    with the kernel's FLOPs and bytes. Under `use_kernels(False)` a meta
+    call runs the plain version, op by op."""
+    return kernels_enabled() and t.device.type == "meta"
+
+
+def _nbytes(*ts) -> int:
+    """Bytes of these tensors on this rank (a DTensor's local shard)."""
+    from torch.distributed.tensor import DTensor
+    return sum((t.to_local() if isinstance(t, DTensor) else t).nbytes
+               for t in ts if t is not None)
+
+
+def _kernel_op(name: str, plain, in_bytes: int, *args, **kwargs):
+    from ..launch.hlo_analysis import kernel_op
+    return kernel_op(name, plain, in_bytes, *args, **kwargs)
 
 
 def block_hadamard(x: torch.Tensor, b: int) -> torch.Tensor:
     """Online block rotation X (I (x) H_b) / sqrt(b) over the last axis, in
     x's dtype; x may be [..., D]."""
+    if _on_meta(x):
+        return _kernel_op("block_hadamard", _bh.block_hadamard_plain,
+                          _nbytes(x) + (0 if b & (b - 1) == 0 else 4 * b * b),
+                          x, b)
     on_kernel = _on_kernel(x)
     _record_dispatch("block_hadamard", on_kernel)
     if not on_kernel:
@@ -133,6 +161,9 @@ def block_hadamard(x: torch.Tensor, b: int) -> torch.Tensor:
 
 def hadamard_quant(x: torch.Tensor, b: int, *, bits: int = 4):
     """Fused rotate + quantise -> (codes, scale, zero); x may be [..., D]."""
+    if _on_meta(x):
+        return _kernel_op("hadamard_quant", _hq.hadamard_quant_plain,
+                          _nbytes(x), x, b, bits)
     on_kernel = _on_kernel(x)
     _record_dispatch("hadamard_quant", on_kernel)
     if not on_kernel:
@@ -143,6 +174,9 @@ def hadamard_quant(x: torch.Tensor, b: int, *, bits: int = 4):
 def quantize_act(x: torch.Tensor, bits: int = 4):
     """Per-token asymmetric activation quantisation -> (codes, scale, zero):
     the fused kernel at block size 1 (identity rotation)."""
+    if _on_meta(x):
+        return _kernel_op("quantize_act", _hq.quantize_act_plain,
+                          _nbytes(x), x, bits)
     on_kernel = _on_kernel(x)
     _record_dispatch("quantize_act", on_kernel)
     if not on_kernel:
@@ -159,13 +193,18 @@ def int4_matmul(act_codes, act_scale, act_zero, w_packed, w_scale,
     [N] as stored by `pack_int4_weights` (recomputed when absent). Returns
     [..., N] float32.
     """
-    on_kernel = _on_kernel(act_codes)
-    _record_dispatch("int4_matmul", on_kernel)
     lead = act_codes.shape[:-1]
     k = act_codes.shape[-1]
     qa = act_codes.reshape(-1, k)
     sa = act_scale.reshape(-1, 1)
     za = act_zero.reshape(-1, 1)
+    if _on_meta(act_codes):
+        out = _kernel_op("int4_matmul", _i4.int4_matmul_plain,
+                         _nbytes(qa, sa, za, w_packed, w_scale, colsum),
+                         qa, sa, za, w_packed, w_scale, colsum)
+        return out.reshape(*lead, out.shape[-1])
+    on_kernel = _on_kernel(act_codes)
+    _record_dispatch("int4_matmul", on_kernel)
     fn = _i4.int4_matmul if on_kernel else _i4.int4_matmul_plain
     out = fn(qa, sa, za, w_packed, w_scale, colsum)
     return out.reshape(*lead, out.shape[-1])
@@ -177,12 +216,24 @@ def paged_attention(q, kv, block_tables, q_positions, seq_lengths=None, *,
     """Block-table-native causal attention over one layer's KV page pool;
     see `kernels.paged_attention.paged_attention`. Returns [B, S, H, Dh]
     f32."""
+    kw = dict(rope_theta=rope_theta, kv_bits=kv_bits, kv_group=kv_group,
+              q_block=q_block, kv_splits=kv_splits, head_block=head_block)
+    if _on_meta(q):
+        # the walk's length is data-dependent: count every page the table
+        # names (each K and V row with its scale and zero; the products of
+        # q against all their rows)
+        pages = sum(_nbytes(t) // t.shape[0] for t in kv.values())
+        b, s, h, dh = q.shape
+        rows = block_tables.shape[1] * kv["k"].shape[1]
+        return _kernel_op("paged_attention",
+                          lambda: q.new_empty(q.shape, dtype=torch.float32),
+                          _nbytes(q, block_tables, q_positions, seq_lengths)
+                          + block_tables.numel() * pages,
+                          flops=4.0 * b * s * h * dh * rows)
     on_kernel = _on_kernel(q)
     _record_dispatch("paged_attention", on_kernel)
     fn = _pa.paged_attention if on_kernel else _pa.paged_attention_plain
-    return fn(q, kv, block_tables, q_positions, seq_lengths,
-              rope_theta=rope_theta, kv_bits=kv_bits, kv_group=kv_group,
-              q_block=q_block, kv_splits=kv_splits, head_block=head_block)
+    return fn(q, kv, block_tables, q_positions, seq_lengths, **kw)
 
 
 def infer_int4_scales(w: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import (gather_weights, local_offset,
+                                   local_shard, local_to_dtensor,
+                                   mesh_axis_size, on_mesh, reduce_over,
+                                   shard_act, with_axis)
 from ..kernels import ops as kops
 from ..kernels.hadamard_quant import _recip_f32
 from ..kernels.paged_attention import rope_frequencies as _rope_frequencies
@@ -179,6 +183,7 @@ def attention(x: torch.Tensor, p: Params, spec: AttnSpec, *,
     """
     b, s, _ = x.shape
     h, kv, dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    p = gather_weights(p)
     if act_in is not None:
         x = act_in(x, "qkv")
     q = x @ p["wq"]
@@ -186,6 +191,13 @@ def attention(x: torch.Tensor, p: Params, spec: AttnSpec, *,
     v = x @ p["wv"]
     if spec.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if on_mesh(x):
+        if block_table is not None:
+            raise ValueError("the paged path runs on one device")
+        out = _attention_on_mesh(q, k, v, spec, cache, cache_index)
+        if act_in is not None:
+            out = act_in(out, "wo")
+        return shard_act(out @ p["wo"], ("batch", "seq", "embed")), cache
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, kv, dh)
     v = v.reshape(b, s, kv, dh)
@@ -250,6 +262,123 @@ def attention(x: torch.Tensor, p: Params, spec: AttnSpec, *,
     if act_in is not None:
         out = act_in(out, "wo")
     return out @ p["wo"], cache
+
+
+def _attention_on_mesh(q, k, v, spec: AttnSpec, cache, cache_index):
+    """`attention` past its projections on a mesh of ranks: q, k, v
+    [B, S, H·Dh] DTensors -> out [B, S, H·Dh] DTensor; a dense cache of
+    DTensor leaves ([B, S_max, KH, Dh] views) is written in place.
+
+    Each rank runs the one-device code on its shards. When the KV heads
+    divide the model axis, attention is head-parallel (q, k, v and the
+    cache split by heads; no collective). Otherwise k and v are gathered
+    over the model axis and the queries split by sequence (a train or
+    prefill chunk; each rank attends its rows to every key) or, for a
+    decode step, replicated against a cache split by sequence
+    (`distributed.shardings.cache_spec`): flash-decoding, whose partial
+    softmax maxima, sums and outputs are all-reduced over the model axis.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+    m = mesh_axis_size("model")
+    b, s, _ = q.shape
+    dh = spec.head_dim
+    decode = cache is not None and s == 1
+    heads = spec.n_kv_heads % m == 0
+    q_pl = Shard(2) if heads else Replicate() if decode else Shard(1)
+    kv_pl = Shard(2) if heads else Replicate()
+    q = with_axis(q, "model", q_pl)
+    k = with_axis(k, "model", kv_pl)
+    v = with_axis(v, "model", kv_pl)
+    b0, s0 = local_offset(q, 0), local_offset(q, 1)
+    ql, kl, vl = local_shard(q), local_shard(k), local_shard(v)
+    bl = ql.shape[0]
+    ql = ql.reshape(bl, ql.shape[1], -1, dh)
+    kl = kl.reshape(bl, kl.shape[1], -1, dh)
+    vl = vl.reshape(bl, vl.shape[1], -1, dh)
+    dev = ql.device
+    idx = cache_index
+    per_slot = torch.is_tensor(idx) and idx.dim() == 1
+    if per_slot:
+        idx = idx[b0:b0 + bl]
+    start = 0 if per_slot else int(idx or 0)
+    ql = apply_rope(ql, chunk_positions(bl, ql.shape[1], idx, dev) + s0,
+                    spec.rope_theta)
+    kl = apply_rope(kl, chunk_positions(bl, kl.shape[1], idx, dev),
+                    spec.rope_theta)
+    scale = _recip_f32(math.sqrt(dh))
+    if cache is None:
+        attend = _chunked_attention if ql.shape[1] > spec.chunk_q \
+            else _dense_attention
+        kw = dict(chunk_q=spec.chunk_q, chunk_kv=spec.chunk_kv) \
+            if attend is _chunked_attention else {}
+        out = attend(ql, kl, vl, causal=spec.causal, q_offset=s0, **kw)
+    else:
+        ck, cv = cache["k"], cache["v"]
+        c0 = local_offset(ck, 1)
+        ckl, cvl = ck.to_local(), cv.to_local()
+        sk_l = ckl.shape[1]
+        seq_cache = sk_l < ck.shape[1]
+        if per_slot:
+            # each row's new entry, where it falls in this rank's part
+            pos = idx.to(torch.int64) - c0
+            inside = ((pos >= 0) & (pos < sk_l))[:, None, None]
+            pos = pos.clamp(0, sk_l - 1)
+            rows = torch.arange(bl, device=dev)
+            for buf, new in ((ckl, kl), (cvl, vl)):
+                buf[rows, pos] = torch.where(inside, new[:, 0].to(buf.dtype),
+                                             buf[rows, pos])
+        else:
+            lo, hi = max(start, c0), min(start + s, c0 + sk_l)
+            if lo < hi:
+                ckl[:, lo - c0:hi - c0] = kl[:, lo - start:hi - start].to(
+                    ckl.dtype)
+                cvl[:, lo - c0:hi - c0] = vl[:, lo - start:hi - start].to(
+                    cvl.dtype)
+        if decode:
+            qpos = chunk_positions(bl, 1, idx, dev)
+            valid = (torch.arange(sk_l, device=dev)[None, :] + c0) \
+                <= qpos[:, :1]
+            kh = ckl.shape[2]
+            qg = ql.reshape(bl, 1, kh, ql.shape[2] // kh, dh)
+            logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                                  ckl.to(torch.float32)) * scale
+            logits = torch.where(valid[:, None, None, None, :], logits,
+                                 torch.full_like(logits, -1e30))
+            if seq_cache:
+                mx = reduce_over(logits.amax(-1, keepdim=True), q, "model",
+                                 "max")
+                e = torch.exp(logits - mx)
+                den = reduce_over(e.sum(-1, keepdim=True), q, "model")
+                out = torch.einsum("bkgqs,bskd->bqkgd", e,
+                                   cvl.to(torch.float32))
+                out = reduce_over(out, q, "model") \
+                    / torch.movedim(den[..., 0], 3, 1)[..., None]
+            else:
+                out = torch.einsum("bkgqs,bskd->bqkgd",
+                                   torch.softmax(logits, dim=-1),
+                                   cvl.to(torch.float32))
+            out = out.reshape(bl, 1, -1, dh).to(q.dtype)
+        else:
+            k_all, v_all = ckl, cvl
+            if seq_cache and start == 0 and s == ck.shape[1]:
+                # the chunk fills the whole cache: its rows, already
+                # gathered, are the cache's
+                k_all, v_all = kl, vl
+            elif seq_cache:
+                k_all = with_axis(ck, "model", Replicate()).to_local()
+                v_all = with_axis(cv, "model", Replicate()).to_local()
+            if ql.shape[1] <= spec.chunk_q and k_all.shape[1] <= spec.chunk_kv:
+                out = _dense_attention(ql, k_all, v_all, causal=spec.causal,
+                                       q_offset=start + s0)
+            else:
+                out = _chunked_attention(ql, k_all, v_all, causal=spec.causal,
+                                         chunk_q=spec.chunk_q,
+                                         chunk_kv=spec.chunk_kv,
+                                         q_offset=start + s0)
+    out = local_to_dtensor(out.reshape(bl, out.shape[1], -1), q, q.shape)
+    # heads over the model axis, as the row-parallel wo takes them (an
+    # all-to-all from the sequence split)
+    return with_axis(out, "model", Shard(2)) if q_pl == Shard(1) else out
 
 
 def init_attention_cache(batch: int, max_len: int, spec: AttnSpec,
@@ -340,15 +469,18 @@ def mlp(x: torch.Tensor, p: Params, act: str, down_proj_fn=None,
     """SwiGLU (act="silu") or tanh-GELU MLP. `down_proj_fn(h, w_down)`
     overrides the last projection: the PTQ hook where the online block
     rotation R3 and the activation quantiser are injected."""
+    p = gather_weights(p)
     if act_in is not None:
         x = act_in(x, "ffn")
     if act == "silu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = F.gelu(x @ p["w_up"], approximate="tanh")
+    h = shard_act(h, ("batch", "seq", "mlp"))
     if down_proj_fn is not None:
-        return down_proj_fn(h, p["w_down"])
-    return h @ p["w_down"]
+        return shard_act(down_proj_fn(h, p["w_down"]),
+                         ("batch", "seq", "embed"))
+    return shard_act(h @ p["w_down"], ("batch", "seq", "embed"))
 
 
 def init_norm(d_model: int, kind: str, dtype, device="cuda") -> Params:

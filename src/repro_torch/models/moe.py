@@ -28,6 +28,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import (gather_weights, local_offset,
+                                   local_shard, local_to_dtensor, on_mesh,
+                                   with_axis)
 from .layers import _normal
 
 Params = dict[str, Any]
@@ -125,6 +128,11 @@ def moe_ffn(x: torch.Tensor, p: Params, *, n_experts: int, top_k: int,
     """Gather-dispatch MoE. x: [B, S, d] -> [B, S, d]."""
     if act_in is not None:
         x = act_in(x, "ffn")
+    if on_mesh(x):
+        return _moe_on_mesh(x, p, n_experts=n_experts, top_k=top_k,
+                            capacity_factor=capacity_factor, act=act,
+                            down_proj_fn=down_proj_fn,
+                            shared_down_proj_fn=shared_down_proj_fn)
     b, s, d = x.shape
     e = n_experts
     c = capacity(s, e, top_k, capacity_factor)
@@ -157,6 +165,70 @@ def moe_ffn(x: torch.Tensor, p: Params, *, n_experts: int, top_k: int,
             out = out + shared_down_proj_fn(sh, p["shared_down"])
         else:
             out = out + sh @ p["shared_down"]
+    return out
+
+
+def _moe_on_mesh(x, p: Params, *, n_experts: int, top_k: int,
+                 capacity_factor: float, act: str, down_proj_fn=None,
+                 shared_down_proj_fn=None):
+    """`moe_ffn` on a mesh of ranks, expert-parallel over the model axis.
+    Every rank routes and dispatches its batch rows (the router gathered),
+    runs its own experts' FFNs on their cells of the grid (weights split
+    over the data axes, ZeRO-3, gathered first) and gathers, for each
+    token, the outputs of its slots that landed on those experts (a zero
+    row for the others); the partial sums add up over the model axis where
+    the residual needs them, as do the shared experts' row-parallel
+    outputs. -> [B, S, d] DTensor, partial over the model axis."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    def full(w):
+        """`w` whole except for its split over the model axis."""
+        for ax in ("pod", "data"):
+            w = with_axis(w, ax, Replicate())
+        return w
+
+    x = with_axis(x, "model", Replicate())
+    xl = local_shard(x)
+    b, s, d = xl.shape
+    e = n_experts
+    c = capacity(s, e, top_k, capacity_factor)
+    router = local_shard(with_axis(full(p["router"]), "model", Replicate()))
+    gates, idx = _route(xl, router, top_k)
+    tok_grid, gate_grid, slot_cell = dispatch(idx, gates, e, c)
+    w = {k: full(p[k]) for k in ("w_gate", "w_up", "w_down") if k in p}
+    e0, el = local_offset(w["w_up"], 0), w["w_up"].to_local().shape[0]
+    lo, hi = e0 * c, (e0 + el) * c
+    cells, gcells = tok_grid[:, lo:hi], gate_grid[:, lo:hi]
+    expert_in = torch.gather(xl, 1, cells[..., None].expand(b, el * c, d))
+    expert_in = expert_in.reshape(b, el, c, d) \
+        * (gcells.reshape(b, el, c, 1) != 0).to(xl.dtype)
+    expert_out = _expert_ffn(expert_in, {k: local_shard(v)
+                                         for k, v in w.items()},
+                             act, down_proj_fn)
+    weighted = expert_out.reshape(b, el * c, d) \
+        * gcells[..., None].to(expert_out.dtype)
+    weighted = torch.cat([weighted, weighted.new_zeros((b, 1, d))], dim=1)
+    cell = slot_cell - lo
+    cell = torch.where((cell < 0) | (cell >= el * c),
+                       torch.full_like(cell, el * c), cell)
+    picked = torch.gather(weighted, 1,
+                          cell[..., None].expand(b, s * top_k, d))
+    picked = picked.reshape(b, s, top_k, d).to(xl.dtype)
+    out = picked[:, :, 0]
+    for j in range(1, top_k):
+        out = out + picked[:, :, j]
+    names = x.device_mesh.mesh_dim_names
+    out = local_to_dtensor(out, x, x.shape,
+                           [Partial() if a == "model" else pl
+                            for a, pl in zip(names, x.placements)])
+    if "shared_gate" in p:
+        sp = gather_weights({k: p[k] for k in ("shared_gate", "shared_up",
+                                               "shared_down")})
+        sh = F.silu(x @ sp["shared_gate"]) * (x @ sp["shared_up"])
+        if shared_down_proj_fn is not None:
+            out = out + shared_down_proj_fn(sh, sp["shared_down"])
+        else:
+            out = out + sh @ sp["shared_down"]
     return out
 
 

@@ -24,6 +24,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import (local_offset, local_shard,
+                                   local_to_dtensor, on_mesh, reduce_over,
+                                   with_axis)
 from .layers import _normal, rmsnorm
 
 Params = dict[str, Any]
@@ -164,7 +167,8 @@ def ssm_block(x: torch.Tensor, p: Params, *, head_dim: int, state: int,
               chunk: int, cache: Params | None = None,
               register_index: torch.Tensor | None = None,
               valid_len: torch.Tensor | None = None,
-              act_in=None, out_proj_fn=None) -> torch.Tensor:
+              act_in=None, out_proj_fn=None, norm_fn=None,
+              zxbcdt: torch.Tensor | None = None) -> torch.Tensor:
     """The Mamba2 block: in_proj -> causal conv -> SSD -> gated RMSNorm ->
     out_proj. Returns the output [B, S, d]; `cache` is updated in place.
 
@@ -174,7 +178,17 @@ def ssm_block(x: torch.Tensor, p: Params, *, head_dim: int, state: int,
     is the recurrent decode step. `valid_len` [B] masks a right-padded
     chunk tail out of the recurrence (decay 1, update 0), so the state
     carried past it equals the unpadded run's. `act_in(x, "ssm_in")` and
-    `out_proj_fn(y, w)` are the PTQ hooks."""
+    `out_proj_fn(y, w)` are the PTQ hooks; `norm_fn(y, scale)` replaces
+    the gated RMSNorm's and `zxbcdt` the in-projection's output (a mesh's
+    heads-split block). On a mesh of ranks the block is head-parallel
+    (`_ssm_on_mesh`)."""
+    if on_mesh(x):
+        if register_index is not None or act_in is not None \
+                or out_proj_fn is not None:
+            raise ValueError("on a mesh of ranks the SSM block takes a "
+                             "native cache and no hooks")
+        return _ssm_on_mesh(x, p, head_dim=head_dim, state=state,
+                            chunk=chunk, cache=cache)
     b, s, _ = x.shape
     d_inner = p["out_proj"].shape[0]
     n_heads = p["A_log"].shape[0]
@@ -189,7 +203,8 @@ def ssm_block(x: torch.Tensor, p: Params, *, head_dim: int, state: int,
 
     if act_in is not None:
         x = act_in(x, "ssm_in")
-    zxbcdt = x @ p["in_proj"]
+    if zxbcdt is None:
+        zxbcdt = x @ p["in_proj"]
     z, xbc, dt = torch.split(
         zxbcdt, [d_inner, d_inner + 2 * state, n_heads], dim=-1)
 
@@ -233,7 +248,7 @@ def ssm_block(x: torch.Tensor, p: Params, *, head_dim: int, state: int,
     y = y + p["D"][None, None, :, None] * xs.to(f32)
     y = y.reshape(b, s, d_inner).to(x.dtype)
     # gated RMSNorm (Mamba2: norm(y * silu(z)))
-    y = rmsnorm(y * F.silu(z), p["norm_scale"])
+    y = (norm_fn or rmsnorm)(y * F.silu(z), p["norm_scale"])
     if out_proj_fn is not None:
         out = out_proj_fn(y, p["out_proj"])
     else:
@@ -249,6 +264,107 @@ def ssm_block(x: torch.Tensor, p: Params, *, head_dim: int, state: int,
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(new_state)
     return out
+
+
+def _ssm_on_mesh(x, p: Params, *, head_dim: int, state: int, chunk: int,
+                 cache: Params | None):
+    """`ssm_block` on a mesh of ranks, head-parallel over the model axis
+    (Mamba2's tensor parallelism with one B/C group): each rank runs the
+    one-device block on its heads - its columns of z, x and dt, the B and C
+    columns whole (the in-projection's output or weight gathered, whichever
+    is smaller - its split over the model axis does not follow the heads -
+    and the conv weights), its A, D,
+    dt bias, norm scale and out-projection rows - with the gated RMSNorm's
+    sum of squares all-reduced over the axis. The conv cache is split by
+    channels without regard to the heads too: its rows are gathered on
+    entry and this rank's share of the new ones written back. -> [B, S, d]
+    DTensor, partial over the model axis."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    def whole(w):
+        for ax in ("pod", "data", "model"):
+            w = with_axis(w, ax, Replicate())
+        return local_shard(w)
+
+    def own(w):                          # split by heads over the model axis
+        for ax in ("pod", "data"):
+            w = with_axis(w, ax, Replicate())
+        return w
+
+    own_data = own                       # whole over the data axes
+
+    d_inner, n_heads = p["out_proj"].shape[0], p["A_log"].shape[0]
+    a_log = own(p["A_log"])
+    h0, hl = local_offset(a_log, 0), a_log.to_local().shape[0]
+    c0, cl = h0 * head_dim, hl * head_dim
+    bc = slice(2 * d_inner, 2 * d_inner + 2 * state)
+
+    def own_columns(t):                  # z, x, B, C, dt of this rank's heads
+        return torch.cat([t[..., c0:c0 + cl],
+                          t[..., d_inner + c0:d_inner + c0 + cl], t[..., bc],
+                          t[..., bc.stop + h0:bc.stop + h0 + hl]], -1)
+
+    b_l, s_l = x.to_local().shape[:2]
+    zxbcdt = None
+    if b_l * s_l < p["in_proj"].shape[0]:
+        # fewer tokens than d_model (decode): gather the output
+        zxbcdt = own_columns(local_shard(with_axis(
+            x @ own_data(p["in_proj"]), "model", Replicate())))
+        w_in = None
+    else:
+        w_in = own_columns(whole(p["in_proj"]))
+    w_conv, b_conv = whole(p["conv_w"]), whole(p["conv_b"])
+    conv_cols = torch.cat([torch.arange(d_inner + c0, d_inner + c0 + cl),
+                           torch.arange(bc.start, bc.stop)]) - d_inner
+    local = {
+        "in_proj": w_in,
+        "conv_w": w_conv[:, conv_cols.to(w_conv.device)],
+        "conv_b": b_conv[conv_cols.to(b_conv.device)],
+        "A_log": local_shard(a_log), "D": local_shard(own(p["D"])),
+        "dt_bias": local_shard(own(p["dt_bias"])),
+        "norm_scale": local_shard(own(p["norm_scale"])),
+        "out_proj": local_shard(own(p["out_proj"])),
+    }
+    x = with_axis(x, "model", Replicate())
+
+    def norm(y, scale, eps: float = 1e-6):
+        yf = y.to(torch.float32)
+        ss = reduce_over(torch.sum(yf * yf, dim=-1, keepdim=True), x,
+                         "model", split_consumers=True)
+        out = yf * torch.rsqrt(ss / d_inner + eps)
+        return (out * scale.to(torch.float32)).to(y.dtype)
+
+    lcache = None
+    if cache is not None:
+        conv = cache["conv"]
+        lcache = {"conv": with_axis(conv, "model", Replicate()).to_local()[
+                      ..., conv_cols.to(conv.device)].clone(),
+                  "state": cache["state"].to_local()}
+    out = ssm_block(local_shard(x), local, head_dim=head_dim, state=state,
+                    chunk=chunk, cache=lcache, norm_fn=norm, zxbcdt=zxbcdt)
+    if cache is not None:
+        # the new conv rows of every channel: this rank's x channels
+        # gathered over the axis, the B and C channels its own
+        new = lcache["conv"]
+        xs = local_to_dtensor(new[..., :cl], x, (*new.shape[:-1], d_inner),
+                              [p_ for p_ in _model_split(x, new.dim() - 1)])
+        full = torch.cat([with_axis(xs, "model", Replicate()).to_local(),
+                          new[..., cl:]], -1)
+        dst = conv.to_local()
+        k0 = local_offset(conv, conv.dim() - 1)
+        dst.copy_(full[..., k0:k0 + dst.shape[-1]].to(dst.dtype))
+    names = x.device_mesh.mesh_dim_names
+    return local_to_dtensor(out, x, x.shape,
+                            [Partial() if a == "model" else pl
+                             for a, pl in zip(names, x.placements)])
+
+
+def _model_split(like, dim: int):
+    """`like`'s placements with the model axis split along `dim`."""
+    from torch.distributed.tensor import Shard
+    names = like.device_mesh.mesh_dim_names
+    return [Shard(dim) if a == "model" else pl
+            for a, pl in zip(names, like.placements)]
 
 
 def init_ssm_cache(batch: int, d_model: int, *, expand: int, head_dim: int,

@@ -32,7 +32,12 @@ import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
+
+from ..distributed.context import (gather_weights, local_offset,
+                                   local_shard, on_mesh, reduce_over,
+                                   shard_act, with_axis)
 
 from . import layers as L
 from . import moe as M
@@ -281,9 +286,13 @@ class Model:
 
     def _head(self, params: Params, x):
         x = L.apply_norm(x, params["final_norm"], self.cfg.norm)
-        return x @ params["lm_head"].to(self.cdt)
+        head = gather_weights({"w": params["lm_head"]})["w"]
+        return shard_act(x @ head.to(self.cdt),
+                         ("batch", "seq", "vocab"))
 
     def _embed_tokens(self, params: Params, tokens):
+        if on_mesh(params["embed"]):
+            return embed_on_mesh(params["embed"], tokens).to(self.cdt)
         return params["embed"][tokens.to(torch.int64)].to(self.cdt)
 
     # ------------------------------------------------------------------
@@ -292,10 +301,12 @@ class Model:
 
     def _embed_inputs(self, params: Params, batch: Params):
         cfg = self.cfg
+        proj = gather_weights({"w": params.get("frontend_proj")})["w"] \
+            if cfg.frontend is not None else None
         if cfg.frontend == "audio_frames":
-            x = batch["frames"].to(self.cdt) @ params["frontend_proj"]
+            x = batch["frames"].to(self.cdt) @ proj
         elif cfg.frontend == "vision_patches":
-            pe = batch["patches"].to(self.cdt) @ params["frontend_proj"]
+            pe = batch["patches"].to(self.cdt) @ proj
             te = self._embed_tokens(params, batch["tokens"])
             x = torch.cat([pe, te], dim=1)
         else:
@@ -327,6 +338,8 @@ class Model:
         if self.cfg.frontend == "vision_patches":
             # labels cover text positions only (after the patch prefix)
             logits = logits[:, -labels.shape[1]:]
+        if on_mesh(logits):
+            return _vocab_parallel_loss(logits, labels)
         mask = (labels >= 0).to(torch.float32)
         labels = torch.clamp_min(labels, 0).to(torch.int64)
         lse = torch.logsumexp(logits, dim=-1)
@@ -438,6 +451,67 @@ class Model:
         """One decode step. tokens: [B, 1]; index: an int or [B] tensor."""
         logits, caches = self.forward_chunk(params, tokens, caches, index)
         return logits[:, 0], caches
+
+
+def embed_on_mesh(table, tokens):
+    """The rows of `table` [V, d] (a DTensor, split by vocabulary over the
+    model axis or not split) for `tokens` [B, S] on a mesh of ranks: each
+    rank looks up the ids that fall in its rows (zeros for the others) and
+    the lookups are summed over the model axis, XLA's partitioning of the
+    reference's gather. -> [B, S, d] DTensor, batch-split as `tokens`."""
+    from torch.distributed.tensor import Replicate, Shard
+    ids = tokens if on_mesh(tokens) else None
+    for ax in ("pod", "data"):           # a ZeRO-3 table: gathered first
+        table = with_axis(table, ax, Replicate())
+    tl = local_shard(table)
+    v0, vl = local_offset(table, 0), tl.shape[0]
+    tok = (ids.to_local() if ids is not None else tokens).to(torch.int64)
+    inside = (tok >= v0) & (tok < v0 + vl)
+    rows = F.embedding((tok - v0).clamp(0, vl - 1), tl)
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    like = ids if ids is not None else table
+    if vl < table.shape[0]:
+        rows = reduce_over(rows, like, "model")
+    names = table.device_mesh.mesh_dim_names
+    pl = [p if ids is not None and a != "model" else Replicate()
+          for a, p in zip(names, like.placements)]
+    pl = [p if isinstance(p, (Shard, Replicate)) else Replicate() for p in pl]
+    from ..distributed.context import local_to_dtensor
+    return local_to_dtensor(rows, table,
+                            (*tokens.shape, table.shape[1]), pl)
+
+
+def _vocab_parallel_loss(logits, labels):
+    """`Model.loss_fn`'s loss on a mesh of ranks, from logits [B, S, V]
+    split by vocabulary over the model axis: each rank takes the max, the
+    sum of exponentials and the gold logit over its own columns, and only
+    those [B, S] partials are all-reduced (XLA's partitioning of the
+    reference's logsumexp and gather), never the logits."""
+    from torch.distributed.tensor import Shard
+    logits = with_axis(logits, "model", Shard(2))
+    ll = local_shard(logits)
+    v0, vl = local_offset(logits, 2), ll.shape[2]
+    lab = labels.to_local() if on_mesh(labels) else labels
+    mask = (lab >= 0).to(torch.float32)
+    lab = torch.clamp_min(lab, 0).to(torch.int64)
+    mx = reduce_over(ll.detach().amax(-1), logits, "model", "max")
+    lse = mx + torch.log(reduce_over(torch.exp(ll - mx[..., None]).sum(-1),
+                                     logits, "model"))
+    inside = (lab >= v0) & (lab < v0 + vl)
+    own = torch.gather(ll, -1, (lab - v0).clamp(0, vl - 1)[..., None])[..., 0]
+    gold = reduce_over(torch.where(inside, own, torch.zeros_like(own)),
+                       logits, "model")
+    # the sums over this rank's rows, added up over the axes that split
+    # the rows (none where the batch does not divide them)
+    data = tuple(a for a, p in zip(logits.device_mesh.mesh_dim_names,
+                                   logits.placements)
+                 if a in ("pod", "data") and p == Shard(0))
+    tokens = reduce_over(torch.sum(mask), logits, data)
+    denom = torch.clamp_min(tokens, 1.0)
+    loss = reduce_over(torch.sum((lse - gold) * mask), logits, data) / denom
+    zloss = 1e-4 * reduce_over(torch.sum((lse * mask) ** 2), logits,
+                               data) / denom
+    return loss + zloss, {"nll": loss, "zloss": zloss, "tokens": tokens}
 
 
 def build_model(cfg: ArchConfig, **kw) -> Model:

@@ -41,6 +41,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import local_to_dtensor, on_mesh, with_axis
 from ..kernels import ops as kops
 from ..kernels.hadamard_quant import _recip_f32
 from ..models import layers as L
@@ -86,19 +87,59 @@ def pack_dense_params(params: Params, cfg: ArchConfig) -> Params:
 
 def _int_matmul(quant, packed: Params, dtype) -> torch.Tensor:
     codes, s, z = quant
+    if on_mesh(packed["packed"]):
+        return _int_matmul_on_mesh(quant, packed, dtype)
     y = kops.int4_matmul(codes, s, z, packed["packed"], packed["scale"],
                          packed.get("colsum"))
     return y.to(dtype)
 
 
+def _int_matmul_on_mesh(quant, packed: Params, dtype):
+    """`_int_matmul` on a mesh of ranks, each rank's kernel call on its
+    shards. Column-parallel weights (`[K/2, N]` split by N over the model
+    axis) give each rank its columns from the whole K; row-parallel ones
+    (split by K/2) its partial sum over its K rows, the column sums of its
+    own codes included (the kernel's `colsum=None`), so the partial sums
+    add up over the model axis."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    codes, s, z = quant
+    w = packed["packed"]
+    names = w.device_mesh.mesh_dim_names
+    w_pl = w.placements[names.index("model")] if "model" in names \
+        else Replicate()
+    row = w_pl == Shard(0)
+    codes = with_axis(codes, "model",
+                      Shard(codes.dim() - 1) if row else Replicate())
+    s = with_axis(s, "model", Replicate())
+    z = with_axis(z, "model", Replicate())
+    colsum = None if row or packed.get("colsum") is None \
+        else packed["colsum"].to_local()
+    y = kops.int4_matmul(codes.to_local(), s.to_local(), z.to_local(),
+                         w.to_local(), packed["scale"].to_local(), colsum)
+    out_pl = [Partial() if row and a == "model"
+              else Shard(y.dim() - 1) if a == "model" and w_pl == Shard(1)
+              else Replicate() if a == "model" else p
+              for a, p in zip(names, codes.placements)]
+    shape = (*codes.shape[:-1], w.shape[1])
+    return local_to_dtensor(y.to(dtype), codes, shape, out_pl)
+
+
 def _int_linear(x: torch.Tensor, packed: Params, *, bits: int = 4):
     """x [..., K] float -> int4 quantise per token -> integer GEMM -> float."""
+    if on_mesh(x):
+        from torch.distributed.tensor import Replicate
+        x = with_axis(x, "model", Replicate())
     return _int_matmul(kops.quantize_act(x, bits), packed, x.dtype)
 
 
 def _rot_int_linear(h: torch.Tensor, packed: Params, block_size: int):
     """Online block rotation fused with quantisation, then the integer GEMM
     (the down-projection path). Also returns the activation codes."""
+    if on_mesh(h):
+        # the per-token scale spans the whole row: gather it over the
+        # model axis first
+        from torch.distributed.tensor import Replicate
+        h = with_axis(h, "model", Replicate())
     quant = kops.hadamard_quant(h, block_size, bits=4)
     return _int_matmul(quant, packed, h.dtype), quant[0]
 
@@ -249,54 +290,62 @@ class QuantizedDenseLM:
             q = q + blk["attn"]["bq"]
             k = k + blk["attn"]["bk"]
             v = v + blk["attn"]["bv"]
-        q = q.reshape(b, s, h_, dh)
-        k = k.reshape(b, s, kv, dh)
-        v = v.reshape(b, s, kv, dh)
-        # index is an int (lockstep batch / prefill chunk) or a [B] tensor
-        # (per-slot fill positions from the continuous-batching engine)
-        per_slot = torch.is_tensor(index) and index.dim() == 1
-        if per_slot and s != 1:
-            raise ValueError("per-slot cache_index requires q_len == 1")
-        pos = L.chunk_positions(b, s, index, dev)
-        q = L.apply_rope(q, pos, spec.rope_theta)
-        if self.kv_bits is None:
-            # float cache: rotate only the new rows, store post-RoPE
-            k = L.apply_rope(k, pos, spec.rope_theta)
-        if block_table is not None:
-            # block-table-native: scatter the new rows into their pages and
-            # walk the table in the kernel (dequantisation and the K
-            # rotation happen inside it for the integer page formats)
-            self._paged_cache_write(cache, k, v, pos, block_table)
-            quantized = self.kv_bits is not None
-            attn = kops.paged_attention(
-                q, cache, block_table, pos, seq_lengths,
-                rope_theta=spec.rope_theta if quantized else None,
-                kv_bits=self.kv_bits,
-                kv_group=self.kv_group if quantized else None)
-            attn = attn.reshape(b, s, h_ * dh).to(x.dtype)
+        if on_mesh(x):
+            if self.kv_bits is not None or block_table is not None:
+                raise ValueError("on a mesh of ranks the integer path "
+                                 "takes a float dense cache")
+            attn = L._attention_on_mesh(q, k, v, spec, cache, index)
         else:
-            self._cache_write(cache, k, v, index)
-            k_all, v_all = self._cache_read(cache)
-            s_k = k_all.shape[1]
-            if self.kv_bits is not None:
-                # integer cache holds pre-RoPE K: rotate after dequant
-                all_pos = torch.arange(s_k, device=dev)[None].expand(b, s_k)
-                k_all = L.apply_rope(k_all.to(torch.float32), all_pos,
-                                     spec.rope_theta)
-            # the query at position p sees keys <= p
-            valid = torch.arange(s_k, device=dev)[None, None, :] \
-                <= pos[:, :, None]
-            g = h_ // kv
-            qg = q.reshape(b, s, kv, g, dh)
-            logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
-                                  k_all.to(torch.float32)) \
-                * _recip_f32(math.sqrt(dh))
-            logits = torch.where(valid[:, None, None, :, :], logits,
-                                 torch.full_like(logits, -1e30))
-            probs = torch.softmax(logits, dim=-1)
-            attn = torch.einsum("bkgqs,bskd->bqkgd", probs,
-                                v_all.to(torch.float32))
-            attn = attn.reshape(b, s, h_ * dh).to(x.dtype)
+            q = q.reshape(b, s, h_, dh)
+            k = k.reshape(b, s, kv, dh)
+            v = v.reshape(b, s, kv, dh)
+            # index is an int (lockstep batch / prefill chunk) or a [B] tensor
+            # (per-slot fill positions from the continuous-batching engine)
+            per_slot = torch.is_tensor(index) and index.dim() == 1
+            if per_slot and s != 1:
+                raise ValueError("per-slot cache_index requires q_len == 1")
+            pos = L.chunk_positions(b, s, index, dev)
+            q = L.apply_rope(q, pos, spec.rope_theta)
+            if self.kv_bits is None:
+                # float cache: rotate only the new rows, store post-RoPE
+                k = L.apply_rope(k, pos, spec.rope_theta)
+            if block_table is not None:
+                # block-table-native: scatter the new rows into their pages and
+                # walk the table in the kernel (dequantisation and the K
+                # rotation happen inside it for the integer page formats)
+                self._paged_cache_write(cache, k, v, pos, block_table)
+                quantized = self.kv_bits is not None
+                attn = kops.paged_attention(
+                    q, cache, block_table, pos, seq_lengths,
+                    rope_theta=spec.rope_theta if quantized else None,
+                    kv_bits=self.kv_bits,
+                    kv_group=self.kv_group if quantized else None)
+                attn = attn.reshape(b, s, h_ * dh).to(x.dtype)
+            else:
+                self._cache_write(cache, k, v, index)
+                k_all, v_all = self._cache_read(cache)
+                s_k = k_all.shape[1]
+                if self.kv_bits is not None:
+                    # integer cache holds pre-RoPE K: rotate after dequant
+                    all_pos = torch.arange(s_k, device=dev)[None].expand(
+                        b, s_k)
+                    k_all = L.apply_rope(k_all.to(torch.float32), all_pos,
+                                         spec.rope_theta)
+                # the query at position p sees keys <= p
+                valid = torch.arange(s_k, device=dev)[None, None, :] \
+                    <= pos[:, :, None]
+                g = h_ // kv
+                qg = q.reshape(b, s, kv, g, dh)
+                logits = torch.einsum("bqkgd,bskd->bkgqs",
+                                      qg.to(torch.float32),
+                                      k_all.to(torch.float32)) \
+                    * _recip_f32(math.sqrt(dh))
+                logits = torch.where(valid[:, None, None, :, :], logits,
+                                     torch.full_like(logits, -1e30))
+                probs = torch.softmax(logits, dim=-1)
+                attn = torch.einsum("bkgqs,bskd->bqkgd", probs,
+                                    v_all.to(torch.float32))
+                attn = attn.reshape(b, s, h_ * dh).to(x.dtype)
         x = x + _int_linear(attn, blk["attn"]["wo"])
 
         hx = L.apply_norm(x, blk["ffn_norm"], cfg.norm)
@@ -327,7 +376,12 @@ class QuantizedDenseLM:
     def _forward(self, params: Params, tokens: torch.Tensor, cache: Params,
                  index, block_table=None, seq_lengths=None, probe=False):
         cfg = self.cfg
-        x = params["embed"][tokens.to(torch.int64)].to(self.compute_dtype)
+        if on_mesh(params["embed"]):
+            from ..models.transformer import embed_on_mesh
+            x = embed_on_mesh(params["embed"], tokens).to(self.compute_dtype)
+        else:
+            x = params["embed"][tokens.to(torch.int64)].to(
+                self.compute_dtype)
         per_layer = []
         for l in range(cfg.n_layers):
             x, _, stats = self._block(

@@ -60,19 +60,23 @@ def _data_parallel_mean(grads: Params, loss: torch.Tensor):
             t.div_(n)
 
 
+def grads_of(model, params: Params, batch: Params, *, remat: bool):
+    """One (micro-)batch's loss, metrics and gradients (a tree like
+    `params`; zeros where a leaf does not reach the loss)."""
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    (loss, metrics) = model.loss_fn(unflatten(params, flat), batch,
+                                    remat=remat)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, unflatten(params, grads)
+
+
 def make_train_step(model, opt_cfg: adamw.AdamWConfig,
                     train_cfg: TrainConfig) -> Callable:
     n_micro = train_cfg.num_microbatches
-
-    def grads_of(params, batch):
-        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-        (loss, metrics) = model.loss_fn(unflatten(params, flat), batch,
-                                        remat=train_cfg.remat)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, grads)]
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, unflatten(params, grads)
+    remat = train_cfg.remat
 
     def train_step(params: Params, opt_state: dict, batch: Params,
                    ef_state: Params | None = None):
@@ -89,7 +93,8 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig,
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=leaves(params)[0].device)
             for mb in micro:
-                loss, metrics, grads = grads_of(params, mb)
+                loss, metrics, grads = grads_of(model, params, mb,
+                                                remat=remat)
                 for a, g in zip(leaves(acc), leaves(grads)):
                     a.add_(g)       # promoted to f32 exactly, in the add
                 loss_sum = loss_sum + loss
@@ -99,7 +104,8 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig,
             grads = acc
             loss = loss_sum / n_micro
         else:
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = grads_of(model, params, batch,
+                                                remat=remat)
         _data_parallel_mean(grads, loss)
 
         compress = train_cfg.compress_grads and ef_state is not None
