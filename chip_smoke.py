@@ -21,7 +21,8 @@ on all three paths. Phases print one JSON line each:
              split merge (the reference's `_combine_kernel`) inside the
              attention launch, bit-equal over 20 launches; attention also at
              the MoE and hybrid families' widths (16 heads of 128, 32 of 64,
-             one query head per KV head, f32 pages)
+             one query head per KV head, f32 pages); `int4_matmul` and
+             attention also at phase bench's 128-row prefill chunks
     serve    the launcher at full width and depth, plain and observed, then
              two short runs
     parity   one prefill chunk and one decode step, kernels vs plain, and
@@ -38,19 +39,19 @@ on all three paths. Phases print one JSON line each:
              seeded fault plan ending in drain(), and one launcher run with
              the prefix cache, the swap tier and --drain-after; books every
              step, tiers empty at the end, tokens against the baseline
-    ptq      `quantize_model` at llama3-1b's full width and depth (one
-             [4, 128] calibration batch, as the launcher): rtn_only,
-             perq_star with and without MassDiff, quarot and the RTN gate
-             pair (MassDiff against identity), then the three Qronos runs
-             again on 8 batches; per run seconds, peak device
+    ptq      `quantize_model` at llama3-1b's full width on its first 8 of
+             16 layers (one [4, 128] calibration batch, as the launcher):
+             rtn_only, perq_star with and without MassDiff, quarot and the
+             RTN gate pair (MassDiff against identity), then the three
+             Qronos runs again on 8 batches; per run seconds, peak device
              memory, per-layer max block l1 and the fake-quant logit MSE
              against the bf16 model on a held-out [2, 64] batch, and the
-             share of the rtn_only-to-quarot gap recovered; the Model's
-             paged path (f32 pages) against its plain version and
-             Model.forward in bf16 and f32; then the launcher: perq_star on
-             the integer path (int4 pages, 16 layers), --no-quant (16
-             layers), the fake-quant default (4 layers), each decode
-             graphed, and --legacy-scheduler (2 layers)
+             share of the rtn_only-to-quarot gap recovered; at 16 layers
+             the Model's paged path (f32 pages) against its plain version
+             and Model.forward in bf16 and f32; then the launcher:
+             perq_star on the integer path (int4 pages, 16 layers),
+             --no-quant (16 layers), the fake-quant default (4 layers),
+             each decode graphed, and --legacy-scheduler (2 layers)
     train    the training path at llama3-1b's full width and depth: seeded
              bf16 params, 8 AdamW steps of [4, 512] Markov-Zipf batches
              (drawn beforehand; the draw timed alone and through the
@@ -102,6 +103,18 @@ on all three paths. Phases print one JSON line each:
              argument + temp bytes within 20 % of the peak allocation, the
              step no faster than its roofline) and the integer decode step
              (batch 4, 128 cached positions) no faster than its roofline
+    bench    the launcher benches (`repro_torch.bench`) on the card:
+             `kernel_bench`'s full cases at published size (the block
+             rotation and the fused rotate + quantise on x[2048, 8192], the
+             flash-decoding attention over the shared ragged workload, the
+             decode step plain and with the kernels, swap I/O) and
+             `serve_bench`'s full trace (legacy scheduler, engine bf16 and
+             int4 pages, the families, the burst, swap and prefix traces
+             with their gates, the attention data path), each entry naming
+             the card; then the launcher at 16 slots, prefill chunks of 128
+             and prompts of 512-1536 tokens (int4 pages, decode graphed):
+             tokens/s, ms per step, peak memory, graphs, peak pages,
+             launches, plain dispatches 0
     profile  (only with --profile) where a pure decode step's time goes,
              eager and graphed, without and with the probe
     ptxas    (only with --ptxas) registers, spills and shared memory of
@@ -128,6 +141,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -151,6 +165,10 @@ if not torch.cuda.is_available():
 
 import numpy as np  # noqa: E402
 
+from repro_torch.bench.timing import (PEAK_BF16_FLOPS_S,  # noqa: E402
+                                      PEAK_F32_FLOPS_S, PEAK_INT8_OPS_S,
+                                      PEAK_TF32_FLOPS_S, bound, device_ms,
+                                      n_copies, nvidia_smi_line, time_ms)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import block_hadamard as BH  # noqa: E402
 from repro_torch.kernels import hadamard_quant as HQ  # noqa: E402
@@ -159,12 +177,6 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 
 DEV = torch.device("cuda", 0)
-PEAK_BYTES_S = 3.35e12
-PEAK_INT8_OPS_S = 1979e12
-PEAK_BF16_FLOPS_S = 989e12
-PEAK_TF32_FLOPS_S = 495e12
-PEAK_F32_FLOPS_S = 67e12
-L2_BYTES = 50 * 2 ** 20
 
 KERNEL_META = {
     "hadamard_quant": {
@@ -191,73 +203,18 @@ KERNEL_META = {
 }
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T0}), flush=True)
 
 
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if out.returncode != 0 or not out.stdout.strip():
-        fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0].strip()
-
-
-def time_ms(fns, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call by CUDA events; `fns` is a list of
-    equivalent closures over distinct buffers, taken in turn so that a call
-    finds its large operands cold in L2 as the serving path does."""
-    for i in range(warmup):
-        fns[i % len(fns)]()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fns, reps: int = 20) -> float:
-    """Mean milliseconds of device time per call: the calls are captured
-    once into a CUDA graph and the graph is replayed, so the host's launch
-    path (Python, allocation, the ctypes call) is outside the measurement.
-    `time_ms` on the same closures gives the eager call time."""
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for f in fns:
-            f()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * len(fns))
-
-
-def n_copies(nbytes: int) -> int:
-    """Copies of an operand to rotate through so the set exceeds L2 twice."""
-    return max(1, min(32, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
-
-
-def bound(nbytes: float, ops: float, peak_ops: float):
-    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -663,6 +620,14 @@ def phase_kernels():
                              (13, 16, [250, 0, 37, 113])):
         cases["combine_partials"].append(check_attention(
             rng, f"merge KS={ks}", "int4", 4, 1, lens, n_cols, theta, kv_splits=ks))
+    # phase bench's scale run (drawn last, so the cases above keep their
+    # data): prefill chunks of 128 rows, and a 128-token chunk over 1024
+    # cached tokens in the 128-column table of --max-len 2048
+    for k, n in ((2048, 8192), (8192, 2048)):
+        cases["int4_matmul"].append(check_int4_matmul(rng, 128, k, n))
+    cases["paged_attention"].append(check_attention(
+        rng, "prefill chunk of 128 over 1024 cached", "int4", 1, 128, [1152],
+        128, theta, live_pool=True))
     if not cases["paged_attention"][0]["used_combine"]:
         fail("the decode attention case did not take the split path")
     bad = [(k, c["shape"]) for k, cs in cases.items() for c in cs if not c["ok"]]
@@ -1669,6 +1634,12 @@ PTQ_RUNS = (
 # further from Model.forward than 1.5x the plain version is.
 MODEL_F32_FRAC = 5e-4
 MODEL_BF16_RATIO = 1.5
+# The PTQ_RUNS sweep quantises the first PTQ_LAYERS layers: its GPTQ /
+# Qronos column loop is host-bound, and at 16 layers the sweep alone took
+# ~310 s of the whole script's time limit (NVIDIA H100 80GB HBM3, 700 W:
+# ~3 s a layer per Qronos run). The paged-path checks and the served runs
+# keep all 16 layers.
+PTQ_LAYERS = 8
 
 
 def check_model_paged(model, params, vocab):
@@ -1742,7 +1713,8 @@ def run_legacy(extra):
 
 def phase_ptq():
     """The paper's PTQ pipeline on the card at llama3-1b's published widths
-    and depth, then the launcher's three serving paths over its results."""
+    (the sweep on its first `PTQ_LAYERS` layers), then the launcher's three
+    serving paths over its results at full depth."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import pipeline as PL
     from repro_torch.core.synthetic import inject_outlier_channels
@@ -1760,7 +1732,11 @@ def phase_ptq():
         crng.integers(0, cfg.vocab, (4, 128))).to(DEV)} for _ in range(8)]
     held = {"tokens": torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (2, 64))).to(DEV)}
-    want = model.forward(params, held).float()
+    cut = build_model(dataclasses.replace(cfg, n_layers=PTQ_LAYERS)
+                      .validate())
+    cut_params = {**params, "layers": tree_map(
+        lambda t: t[:PTQ_LAYERS].clone(), params["layers"])}
+    want = cut.forward(cut_params, held).float()
     runs, problems = [], []
     for label, name, over, n_batches in PTQ_RUNS:
         ptq = PL.preset(name, block_size=16, **over) if name \
@@ -1768,12 +1744,12 @@ def phase_ptq():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = PL.quantize_model(model, params, calib[:n_batches], ptq)
+        res = PL.quantize_model(cut, cut_params, calib[:n_batches], ptq)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        got = PL.build_quantized_model(model, res).forward(res.params,
-                                                           held).float()
+        got = PL.build_quantized_model(cut, res).forward(res.params,
+                                                         held).float()
         rec = {"label": label, "preset": name, "calibration_tokens":
                512 * n_batches,
                "config": {k: getattr(ptq, k) for k in (
@@ -1794,6 +1770,7 @@ def phase_ptq():
                                 f"l1 of layers {worse}")
         runs.append(rec)
         del res, got
+    del cut, cut_params
     mse = {r["label"]: r["logit_mse"] for r in runs}
     recovered, gap = {}, {}
     for tag in ("", ", 8 batches"):
@@ -1852,6 +1829,7 @@ def phase_ptq():
                  if not r["ok"]]
     emit("ptq", ok=not problems, model="llama3-1b, 16 layers, d_model 2048, "
          "d_ff 8192, vocab 128256, bf16, seeded, outliers injected",
+         sweep_layers=PTQ_LAYERS,
          calibration="[4, 128] token batches", held_out="[2, 64] tokens",
          runs=runs, recovered_share=recovered,
          rtn_only_to_quarot_gap=gap, model_paged=paged,
@@ -3205,6 +3183,82 @@ def phase_dryrun():
         fail(f"dryrun phase: {problems}")
 
 # ---------------------------------------------------------------------------
+# phase: bench
+# ---------------------------------------------------------------------------
+
+# the main path at the serving sizes no other phase reaches: 16 decode rows,
+# 128-row prefill chunks, contexts up to 1600 positions of a 2048-position
+# (128-column) table
+SCALE_ARGS = ["--kv-bits", "4", "--slots", "16", "--max-len", "2048",
+              "--prefill-chunk", "128", "--requests", "32",
+              "--prompt-len", "512-1536", "--max-new", "64"]
+# the paged kernel against the slab path of serve_bench's data-path rows:
+# f32 pages and queries, the kernels phase's attention tolerance
+ATTN_SLAB_TOL = 2e-5
+
+
+def phase_bench(smi: str):
+    """The launcher benches (`repro_torch.bench.kernel_bench` and
+    `serve_bench`, full cases, published size, every gate of the serve
+    bench), then the main path through the launcher at 16 slots, chunks of
+    128 and contexts up to 1600 tokens."""
+    from repro_torch.bench import kernel_bench as KB
+    from repro_torch.bench import serve_bench as SB
+    out = _build.build_dir() / "bench"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    problems, seconds = [], {}
+    t0 = time.perf_counter()
+    # the benches' own CSV lines go to stderr; their rows are in this
+    # phase's line
+    with contextlib.redirect_stdout(sys.stderr):
+        kernels = KB.main(["--out", str(out / "BENCH_kernels_h100.json")])
+        seconds["kernel_bench"] = time.perf_counter() - t0
+        serve = SB.main(["--out", str(out / "BENCH_serve_h100.json")])
+        seconds["serve_bench"] = time.perf_counter() - t0 - \
+            seconds["kernel_bench"]
+    for entry in (kernels, serve):
+        if entry["device"].get("nvidia_smi") != smi \
+                or entry["clock"] != "cuda_events" or entry["smoke"]:
+            problems.append(f"{entry['bench']}: device {entry['device']}, "
+                            f"clock {entry['clock']}, smoke {entry['smoke']}")
+    diff = serve["rows"][-1]["max_abs_diff_vs_slab"]
+    if not diff <= ATTN_SLAB_TOL:
+        problems.append(f"paged kernel vs slab path: {diff}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    result, scale = run_launcher(
+        "llama3-1b, 16 layers, int4 KV pages: 16 slots, chunks of 128, "
+        "prompts of 512-1536 tokens", SCALE_ARGS)
+    seconds["scale_run"] = time.perf_counter() - t1
+    engine, done = result["engine"], result["done"]
+    stats = engine.graph_stats()
+    alloc = engine.kv.allocator
+    scale.update(
+        decode_rows=engine.max_seqs,
+        graph_table_columns=sorted(key[2][0] for key, call
+                                   in engine._graphs.items()
+                                   if call.graph is not None),
+        graph_pool_mib=stats["pool_bytes"] / 2 ** 20,
+        graph_capture_s=stats["capture_s"],
+        peak_pages_in_use=alloc.peak_in_use, page_capacity=alloc.capacity,
+        longest_context=max(len(r.prompt) + len(r.generated) for r in done),
+        prefill_tokens=result["snapshot"]["counters"][
+            "engine.prefill_tokens"])
+    del result, engine, done
+    problems += [f"scale run: {p}" for p in scale["problems"]]
+    if scale["longest_context"] <= 1024 or max(
+            scale["graph_table_columns"], default=0) < 64:
+        problems.append("the scale run never reached contexts beyond 1024")
+    seconds["phase"] = time.perf_counter() - t0
+    emit("bench", ok=not problems, kernel_bench=kernels, serve_bench=serve,
+         scale=scale, seconds=seconds, problems=problems)
+    if problems:
+        fail(f"bench phase: {problems}")
+
+# ---------------------------------------------------------------------------
 
 # the case of each kernel that the closing record reports: the shape a
 # decode step of the served model gives it
@@ -3288,6 +3342,7 @@ def main(argv=None):
     phase_paper()
     phase_launch_train()
     phase_dryrun()
+    phase_bench(smi)
     print(smi, flush=True)
     print(json.dumps(kernel_record(cases, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {

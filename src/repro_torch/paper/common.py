@@ -118,3 +118,25 @@ def quantize_and_eval(model, params, corpus, ptq_cfg: PL.PTQConfig,
     res = PL.quantize_model(model, params, cal, ptq_cfg)
     return eval_ppl(model, res.params, corpus, hooks=res.hooks,
                     n_batches=n_eval)
+
+
+def ragged_paged_batch(batch: int, max_len: int, page_size: int):
+    """The shared ragged decode workload of the paged-attention benches
+    (`bench.kernel_bench`, `bench.serve_bench`).
+
+    Lengths span 25%..100% of `max_len`; each sequence gets distinct
+    sequential page ids in a `[batch, max_len/page_size]` table padded
+    with the scratch page, and queries sit at the last position. Returns
+    (lengths, n_pages, block_table rows, qpos rows) as plain Python/numpy
+    so both benches build identical tables and their pages-walked rows
+    stay comparable.
+    """
+    lengths = [max(1, int(max_len * f))
+               for f in np.linspace(0.25, 1.0, batch)]
+    n_cols = -(-max_len // page_size)
+    n_pages = 1 + sum(-(-n // page_size) for n in lengths)
+    ids = list(range(1, n_pages))
+    table = [[ids.pop(0) for _ in range(-(-n // page_size))]
+             + [0] * (n_cols - -(-n // page_size)) for n in lengths]
+    qpos = [[n - 1] for n in lengths]
+    return lengths, n_pages, table, qpos

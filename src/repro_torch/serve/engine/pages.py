@@ -21,7 +21,8 @@ per-sequence block-table rows and the register slots straight to the
 model's `forward_chunk`, which scatters each new KV row into its page and
 attends by walking the table inside `kernels.ops.paged_attention`, and
 gathers and writes back the register slots. No contiguous slab is ever
-built.
+built on that path: `gather_pages` and the `scatter_*_rows` functions are
+the reference's slab oracles, for tests and benches only.
 
 This module keeps the bookkeeping: the refcounted allocator, block tables,
 release-time scrubbing, copy-on-write page copies and the swap tier.
@@ -74,6 +75,7 @@ import torch
 
 from ...kernels import ops as kops
 from ...tree import leaves as tree_leaves
+from ...tree import tree_map
 
 Params = dict[str, Any]
 
@@ -342,6 +344,62 @@ class HostSwapPool:
             self._free_set.update(slots)
         else:
             self._deferred.append((after, list(slots)))
+
+
+def gather_pages(pool: Params, block_tables: torch.Tensor) -> Params:
+    """Gather pages into contiguous per-sequence slabs (TEST ORACLE ONLY -
+    the serving path is block-table-native and never materialises slabs).
+
+    pool leaves: [n_layers, n_pages, page_size, ...]
+    block_tables: [B, P] int page ids (pad entries = SCRATCH_PAGE)
+    returns leaves: [n_layers, B, P·page_size, ...]
+    """
+    b, p = block_tables.shape
+
+    def g(leaf):
+        s = leaf.index_select(1, block_tables.reshape(-1).to(leaf.device,
+                                                             torch.int64))
+        return s.reshape(leaf.shape[0], b, p * leaf.shape[2], *leaf.shape[3:])
+
+    return tree_map(g, pool)
+
+
+def scatter_decode_rows(pool: Params, slab: Params, fill_pos: torch.Tensor,
+                        page_ids: torch.Tensor,
+                        offsets: torch.Tensor) -> Params:
+    """Write each slot's newly decoded KV row back into its page (TEST
+    ORACLE ONLY - the forward writes rows in place on the serving path).
+
+    Extracts row `fill_pos[i]` of slot i from every slab leaf and stores it
+    at (page_ids[i], offsets[i]) in a copy of the pool, which is returned.
+    Padded slots point at the scratch page, so their (duplicate) writes are
+    harmless.
+    """
+    rows = torch.arange(fill_pos.shape[0], device=fill_pos.device)
+
+    def upd(p, s):
+        new = s[:, rows, fill_pos.long()]          # [n_layers, B, ...]
+        out = p.clone()
+        out[:, page_ids.long(), offsets.long()] = new.to(p.dtype)
+        return out
+
+    return tree_map(upd, pool, slab)
+
+
+def scatter_prefill_rows(pool: Params, slab: Params, positions: torch.Tensor,
+                         page_ids: torch.Tensor,
+                         offsets: torch.Tensor) -> Params:
+    """Write a prefill chunk's KV rows (single sequence, slab batch row 0)
+    back into a copy of its pages: slab positions `positions[j]` land at
+    (page_ids[j], offsets[j]). TEST ORACLE ONLY - see gather_pages."""
+
+    def upd(p, s):
+        new = s[:, 0, positions.long()]            # [n_layers, S, ...]
+        out = p.clone()
+        out[:, page_ids.long(), offsets.long()] = new.to(p.dtype)
+        return out
+
+    return tree_map(upd, pool, slab)
 
 
 class PagedKVCache:

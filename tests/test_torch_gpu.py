@@ -8,6 +8,8 @@ skips. Run them on the machine with the card:
 (`python3 chip_smoke.py` runs the same comparisons at the serving path's
 full-width shapes and then serves a model through the kernels.)
 """
+import importlib
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -1193,3 +1195,25 @@ def test_checkpoint_round_trip_of_card_tensors(dev, tmp_path, dtype):
         else (lambda t: t)
     assert torch.equal(bits(got["w"]), bits(tree["w"]))
     assert int(got["opt"]["step"]) == 4
+
+
+@pytest.mark.parametrize("name", ["kernel_bench", "serve_bench"])
+def test_bench_smoke_mains_on_the_card(dev, tmp_path, name):
+    """Both launcher benches' smoke runs at the reduced size on the card:
+    CUDA-event times, the card named in the entry, every gate of the serve
+    bench passing."""
+    bench = importlib.import_module(f"repro_torch.bench.{name}")
+    out = tmp_path / f"{name}.json"
+    entry = bench.main(["--smoke", "--reduced", "--out", str(out)])
+    assert json.loads(out.read_text())["history"] == [entry]
+    assert entry["clock"] == "cuda_events"
+    assert entry["device"]["platform"] == "gpu"
+    assert entry["device"]["kind"] == torch.cuda.get_device_name(0)
+    assert entry["device"]["nvidia_smi"]
+    if name == "kernel_bench":
+        assert len(entry["rows"]) == 8
+        assert all(r["us_per_step"] > 0 for r in entry["rows"][:4])
+        assert all(r["copy_device_ms"] > 0 for r in entry["rows"][-2:])
+    else:
+        assert len(entry["rows"]) == 15
+        assert entry["rows"][-1]["max_abs_diff_vs_slab"] <= 2e-5
