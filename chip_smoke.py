@@ -92,7 +92,12 @@ on all three paths. Phases print one JSON line each:
              the restored state equal to its checkpoint); at qwen's size
              train steps plain, plain while a Prefetcher draws, and with
              int8 error-feedback compression, in turns, the compression's
-             error bounds, and `compressed_psum` on a one-rank NCCL group
+             error bounds, and `compressed_psum` on a one-rank NCCL group;
+             then the launcher's sharded path for ZeRO-3 deepseek-coder-33b
+             at its full width cut to 1 layer ([4, 256], 2 steps) under a
+             one-rank NCCL world, and the same run with no process group:
+             step ms, peak memory, save and restore seconds, the final
+             states bit-equal
     dryrun   the dry run (`repro_torch.launch.dryrun`: meta tensors over a
              fake world of 256 or 512 ranks) of llama3-1b and qwen1.5-0.5b
              over every shape on both production meshes and their integer
@@ -120,6 +125,13 @@ on all three paths. Phases print one JSON line each:
     ptxas    (only with --ptxas) registers, spills and shared memory of
              every kernel, from a compile of its own (also when the library
              was already built)
+    train_mesh  (only with --train-mesh, which runs it alone after
+             `device`, on four cards) the launcher's sharded path on four
+             NCCL ranks: llama3-1b tensor-parallel on (2, 2) at full width
+             cut to 2 layers and ZeRO-3 deepseek-coder-33b on (4, 1) at
+             full width cut to 1 layer, 3 steps of [4, 256] a data rank,
+             against the same runs in one process on one card (losses,
+             gradient norms), each rank's checkpoint restored bit for bit
     sweep    (only with --sweep) the attention kernel under other launch
              plans (block rows, warps per block, keys per tile), then
              `int4_matmul` (target blocks, tile rows), `block_hadamard`
@@ -2597,9 +2609,9 @@ def launch_runs(root: Path, model):
             return out
         return with_loss
 
-    def waited(batches, device):
+    def waited(batches, device, *mesh):
         """`on_device`, timing how long the driver waits for each batch."""
-        inner = feed(batches, device)
+        inner = feed(batches, device, *mesh)
         while True:
             t0 = time.perf_counter()
             try:
@@ -2847,12 +2859,364 @@ def compression_at_size(model, params, opt,
     return rec, problems
 
 
+# The sharded path runs here on one rank. One card takes no second NCCL
+# rank, and two gloo ranks on it cannot run the sharded step: gloo's
+# functional all-gather on CUDA tensors (DTensor's Shard -> Replicate,
+# `full_tensor`) ends the process with a segmentation fault (torch
+# 2.11.0+cu128; its all-reduce, reduce-scatter and the c10d collectives
+# work). So the multi-rank runs are held on CPU gloo ranks
+# (tests/test_torch_train_mesh.py) and wait for a machine of several cards.
+ZERO3_ARCH = "deepseek-coder-33b"
+ZERO3_LAYERS = 1         # its full width, the depth cut in this harness
+ZERO3_ARGS = ["--arch", ZERO3_ARCH, "--batch", "4", "--seq", "256",
+              "--steps", "2"]
+
+
+@contextlib.contextmanager
+def depth_cut(LT, n_layers: int):
+    """`launch.train` building its arch with `n_layers` layers (the
+    launcher has no flag for the depth)."""
+    orig = LT.get_config
+    LT.get_config = lambda arch: dataclasses.replace(orig(arch),
+                                                     n_layers=n_layers)
+    try:
+        yield
+    finally:
+        LT.get_config = orig
+
+
+def _steps_recorded(LT, into: list):
+    """`LT.make_train_step` whose steps record (start event, end event,
+    metrics) into `into`."""
+    make = LT.make_train_step
+
+    def timed(*a, **k):
+        step = make(*a, **k)
+
+        def run(p, o, b):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = step(p, o, b)
+            e.record()
+            into.append((s, e, out[-1]))
+            return out
+        return run
+    return timed
+
+
+def zero3_one_rank(root: Path, work: Path) -> tuple[dict, list]:
+    """(d): the launcher's sharded path for a ZeRO-3 arch at its full width
+    under a one-rank NCCL world (a (1, 1) mesh: every leaf stays whole on
+    the card; the driver's failure flag and the checkpoint's barrier go
+    through NCCL), then the same run with no process group (its saves
+    skipped), deterministic algorithms on in both: the final states
+    bit-equal. Step ms by CUDA events, peak memory, save and restore
+    seconds (the final checkpoint read back onto the final state)."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as LT
+    from repro_torch.models.transformer import build_model
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config(ZERO3_ARCH), n_layers=ZERO3_LAYERS)
+    shapes = build_model(cfg).init_shapes()
+    n_params = sum(t.numel() for t in leaves(shapes))
+    ckpt_bytes = sum(t.numel() * t.element_size() for t in leaves(shapes)) \
+        + 2 * 4 * n_params + 4
+    free = shutil.disk_usage(root).free
+    if free < 2 * ckpt_bytes * 1.05:
+        fail(f"launch_train: {free / 1e9:.1f} GB free under {root}, the "
+             f"ZeRO-3 run keeps 2 checkpoints of {ckpt_bytes / 1e9:.2f} GB")
+    make = LT.make_train_step
+    runs = {}
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for label in ("one_rank_nccl", "no_group"):
+            events, saves, writes = [], [], []
+            torch.cuda.reset_peak_memory_stats()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as st:
+                if label == "one_rank_nccl":
+                    dist.init_process_group(
+                        "nccl", init_method=f"file://{work / 'nccl_store'}",
+                        world_size=1, rank=0)
+                    st.callback(dist.destroy_process_group)
+                    st.enter_context(recorded(
+                        CheckpointManager, "save", saves,
+                        lambda a, k, out, s: {"step": a[1], "return_s": s}))
+                    st.enter_context(recorded(
+                        CheckpointManager, "_write", writes,
+                        lambda a, k, out, s: {"step": a[1], "write_s": s}))
+                else:       # the same run; its checkpoints are not written
+                    st.callback(setattr, CheckpointManager, "save",
+                                CheckpointManager.save)
+                    CheckpointManager.save = lambda *a, **k: None
+                st.enter_context(depth_cut(LT, ZERO3_LAYERS))
+                LT.make_train_step = _steps_recorded(LT, events)
+                st.callback(setattr, LT, "make_train_step", make)
+                st.enter_context(contextlib.redirect_stdout(buf))
+                out = LT.main(ZERO3_ARGS + ["--workdir",
+                                            str(work / label)])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                grouped = dist.is_initialized()
+            runs[label] = {
+                "state": (out["params"], out["opt"]),
+                "rec": {"wall_s": wall, "in_nccl_group": grouped,
+                        "lines": buf.getvalue().splitlines(),
+                        "end": out["step"],
+                        "failures": out["driver"].failures,
+                        "restores": out["driver"].restores,
+                        "step_ms": [s.elapsed_time(e) for s, e, _ in events],
+                        "losses": [float(m["loss"]) for _, _, m in events],
+                        "peak_device_memory_gib":
+                            torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "saves": saves, "writes": writes}}
+            del out
+        state = runs["one_rank_nccl"]["state"]
+        mgr = CheckpointManager(str(work / "one_rank_nccl" / "ckpt"))
+        t0 = time.perf_counter()
+        back = mgr.restore(target={"params": state[0], "opt": state[1]})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_equal = tree_bits_equal(back, {"params": state[0],
+                                                "opt": state[1]})
+        del back
+        same = tree_bits_equal(state, runs["no_group"]["state"])
+    finally:
+        torch.use_deterministic_algorithms(det)
+    rec = {"model": f"{ZERO3_ARCH}: {ZERO3_LAYERS} layer, d_model "
+                    f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads}/"
+                    f"{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
+                    f"{cfg.vocab}, {cfg.param_dtype}, seeded",
+           "args": ZERO3_ARGS, "parameters": n_params,
+           "checkpoint_gb_expected": ckpt_bytes / 1e9,
+           "restore_s": restore_s,
+           "restored_bit_equal_to_state": restored_equal,
+           "final_state_bit_equal_to_no_group": same,
+           **{k: v["rec"] for k, v in runs.items()}}
+    problems = []
+    one = rec["one_rank_nccl"]
+    for label in runs:
+        r = rec[label]
+        if len(r["losses"]) != 2 or not all(math.isfinite(v)
+                                            for v in r["losses"]):
+            problems.append(f"zero3 {label} losses: {r['losses']}")
+        if "finished at step 2; failures=0 restores=0" not in r["lines"]:
+            problems.append(f"zero3 {label}: {r['lines']}")
+    if not one["in_nccl_group"]:
+        problems.append("zero3: the launcher ran outside the NCCL group")
+    if not same:
+        problems.append("zero3: the one-rank NCCL run's final state is not "
+                        "the no-group run's, bit for bit")
+    if not restored_equal:
+        problems.append("zero3: the final checkpoint does not restore the "
+                        "final state bit for bit")
+    del runs, state
+    torch.cuda.empty_cache()
+    return rec, problems
+
+
+# --train-mesh (four cards): the sharded launcher on four NCCL ranks, one a
+# card, against one process on one card. (label, arch, layers kept of its
+# full width, --model-parallel)
+MESH_RUNS = (("tp_2x2", "llama3-1b", 2, 2),
+             ("zero3_4x1", ZERO3_ARCH, ZERO3_LAYERS, 1))
+MESH_WORLD = 4
+MESH_ARGS = ["--batch", "4", "--seq", "256", "--steps", "3"]
+MESH_TIMEOUT_S = 600
+# bf16 sums split over the ranks; measured on four H100s: at most 1.3e-5
+# (losses) and 1.5e-4 (gradient norms)
+MESH_LOSS_REL, MESH_NORM_REL = 1e-3, 1e-3
+
+
+def train_mesh_rank(rank: int, world: int, store: str, out: str):
+    """One rank of `phase_train_mesh`: each of MESH_RUNS through the
+    launcher, then its final checkpoint restored onto its final state."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as LT
+    from repro_torch.tree import leaves
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            device_id=torch.device("cuda", rank))
+    recs = {}
+    try:
+        for label, arch, layers, mp in MESH_RUNS:
+            steps, saves = [], []
+            work = Path(out) / label
+            make = LT.make_train_step
+            torch.cuda.reset_peak_memory_stats()
+            buf = io.StringIO()
+            with contextlib.ExitStack() as st:
+                st.enter_context(depth_cut(LT, layers))
+                st.enter_context(recorded(
+                    CheckpointManager, "save", saves,
+                    lambda a, k, o, sec: {"step": a[1], "return_s": sec}))
+                LT.make_train_step = _steps_recorded(LT, steps)
+                st.callback(setattr, LT, "make_train_step", make)
+                st.enter_context(contextlib.redirect_stdout(buf))
+                run = LT.main(["--arch", arch, "--model-parallel", str(mp),
+                               "--workdir", str(work)] + MESH_ARGS)
+            torch.cuda.synchronize()
+            state = {"params": run["params"], "opt": run["opt"]}
+            t0 = time.perf_counter()
+            back = CheckpointManager(str(work / "ckpt")).restore(
+                target=state)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            same = all(a.placements == b.placements and torch.equal(
+                a.to_local(), b.to_local())
+                for a, b in zip(leaves(back), leaves(state)))
+            dist.barrier()          # every rank has read the checkpoint
+            recs[label] = {
+                "lines": buf.getvalue().splitlines(),
+                "step_ms": [a.elapsed_time(b) for a, b, _ in steps],
+                "losses": [float(m["loss"]) for _, _, m in steps],
+                "grad_norms": [float(m["grad_norm"]) for _, _, m in steps],
+                "peak_device_memory_gib":
+                    torch.cuda.max_memory_allocated() / 2 ** 30,
+                "saves": saves, "restore_s": restore_s,
+                "restored_bit_equal": same,
+                "param_bytes": [sum(t.to_local().numel()
+                                    * t.element_size()
+                                    for t in leaves(run["params"])),
+                                sum(t.numel() * t.element_size()
+                                    for t in leaves(run["params"]))]}
+            del run, state, back
+            torch.cuda.empty_cache()
+            if rank == 0:
+                shutil.rmtree(work, ignore_errors=True)
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out) / f"rank{rank}.json", "w") as f:
+        json.dump(recs, f)
+
+
+def one_card_run(arch: str, layers: int, dp: int) -> dict:
+    """A MESH_RUNS entry in this process on one card, no process group: the
+    launcher's init, optimizer and step on the data ranks' batches side
+    by side."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           batch_iterator)
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.paper.common import to_device
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = build_model(cfg)
+    b, seq, n = (int(MESH_ARGS[i]) for i in (1, 3, 5))
+    its = [batch_iterator(SyntheticCorpus(cfg.vocab, seed=0),
+                          DataConfig(cfg.vocab, seq, b, host_id=h,
+                                     num_hosts=dp)) for h in range(dp)]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, total_steps=n)
+    opt = adamw.init_state(opt_cfg, params)
+    step = make_train_step(model, opt_cfg, TrainConfig(remat=False))
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    for _ in range(n):
+        parts = [next(i) for i in its]
+        batch = to_device({k: np.concatenate([p[k] for p in parts])
+                           for k in parts[0]}, DEV)
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        params, opt, m = step(params, opt, batch)
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": norms, "step_ms": ms,
+            "peak_device_memory_gib": peak}
+
+
+def phase_train_mesh():
+    """(--train-mesh, four cards) the launcher's sharded path on four NCCL
+    ranks: llama3-1b tensor-parallel on a (2, 2) mesh at its full width
+    cut to 2 layers, and ZeRO-3 deepseek-coder-33b on (4, 1) at its full
+    width cut to 1 layer, [4, 256] a data rank, 3 steps each; then each
+    run in one process on one card on the data ranks' batches side by
+    side: the losses and gradient norms within MESH_LOSS_REL and
+    MESH_NORM_REL, every rank's final checkpoint restored bit for bit,
+    ZeRO-3's parameters a quarter a rank."""
+    import torch.multiprocessing as tmp
+    if torch.cuda.device_count() < MESH_WORLD:
+        fail(f"--train-mesh needs {MESH_WORLD} cards, "
+             f"not {torch.cuda.device_count()}")
+    t_phase = time.perf_counter()
+    root = _build.build_dir()
+    root.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=root, prefix="train_mesh."))
+    try:
+        ctx = tmp.start_processes(
+            train_mesh_rank, args=(MESH_WORLD, str(work / "store"),
+                                   str(work)),
+            nprocs=MESH_WORLD, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    fail(f"train_mesh: the ranks ran past {MESH_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ranks_s = time.perf_counter() - t_phase
+    problems, runs = [], {}
+    for label, arch, layers, mp in MESH_RUNS:
+        alone = one_card_run(arch, layers, MESH_WORLD // mp)
+        recs = [r[label] for r in ranks]
+        rel = {k: max(abs(a - b) / abs(b) for rec in recs
+                      for a, b in zip(rec[k], alone[k]))
+               for k in ("losses", "grad_norms")}
+        runs[label] = {"ranks": recs, "one_card": alone,
+                       "max_rel_diff": rel}
+        n = int(MESH_ARGS[5])
+        for r, rec in enumerate(recs):
+            if f"finished at step {n}; failures=0 restores=0" \
+                    not in rec["lines"]:
+                problems.append(f"{label} rank {r}: {rec['lines']}")
+            if not all(math.isfinite(v) for v in rec["losses"]):
+                problems.append(f"{label} rank {r} losses {rec['losses']}")
+            if not rec["restored_bit_equal"]:
+                problems.append(f"{label} rank {r}: the restore is not the "
+                                "final state")
+            if mp == 1 and rec["param_bytes"][0] > 0.26 * \
+                    rec["param_bytes"][1]:
+                problems.append(f"{label} rank {r} holds "
+                                f"{rec['param_bytes']} parameter bytes")
+        if not (rel["losses"] <= MESH_LOSS_REL
+                and rel["grad_norms"] <= MESH_NORM_REL):
+            problems.append(f"{label}: against one card {rel}")
+    emit("train_mesh", ok=not problems, world=MESH_WORLD, args=MESH_ARGS,
+         runs=runs, seconds={"ranks": ranks_s,
+                             "phase": time.perf_counter() - t_phase},
+         problems=problems)
+    if problems:
+        fail(f"train_mesh phase: {problems}")
+
+
 def phase_launch_train():
     """The training entry point on the card: (a) `launch.train` at
     qwen1.5-0.5b's full size, 4 steps then 2 resumed from its own step-4
     checkpoint; (b) the fault-tolerant driver under injected faults at the
     surrogate's width; (c) int8 error-feedback compression at qwen's
-    size."""
+    size; (d) the launcher's sharded path for ZeRO-3 deepseek-coder-33b at
+    its full width, one layer, under a one-rank NCCL world."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
                                            batch_iterator)
@@ -2904,12 +3268,22 @@ def phase_launch_train():
     problems += more
     del params, opt
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(dir=root, prefix="zero3."))
+    try:
+        zero3, more = zero3_one_rank(root, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    secs["zero3_one_rank"] = time.perf_counter() - t0
+    problems += more
     secs["phase"] = time.perf_counter() - t_phase
     emit("launch_train", ok=not problems,
          model="qwen1.5-0.5b, 24 layers, d_model 1024, d_ff 2816, 16/16 "
                "heads of 64, QKV bias, vocab 151936, untied lm_head, bf16, "
                "seeded", args=LAUNCH_ARGS, seconds=secs, launcher=launch,
-         driver_faults=faults, compression=comp, problems=problems)
+         driver_faults=faults, compression=comp, zero3_one_rank=zero3,
+         problems=problems)
     if problems:
         fail(f"launch_train phase: {problems}")
 
@@ -3322,9 +3696,19 @@ def main(argv=None):
     ap.add_argument("--ptxas", action="store_true",
                     help="report ptxas -v per kernel (a JSON phase, the raw "
                          "log on stderr)")
+    ap.add_argument("--train-mesh", action="store_true",
+                    help="(four cards) run only the sharded launcher on four "
+                         "NCCL ranks against one card")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()
+    if args.train_mesh:
+        phase_train_mesh()
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     phase_build(args.ptxas)
     cases = phase_kernels()
     if args.sweep:

@@ -18,7 +18,12 @@ reference itself cannot cast them into a target, so only its flat
     device.
   * saves are asynchronous (background thread) with `wait()` barriers, and
     a keep-last-k retention policy; under a process group of several ranks
-    rank 0 writes and every rank reads.
+    rank 0 writes and every rank reads, once rank 0's writes are done.
+  * a tree of DTensors (tensor-parallel or ZeRO-3 state) is saved whole:
+    every rank gathers each leaf (`full_tensor()`), in tree order, and
+    rank 0 writes them in the same format. Restored into a DTensor
+    target, each leaf is laid out by the target leaf's mesh and
+    placements, each rank keeping its own shard of the file's tensor.
   * `restore_sharded(target, shardings)` restores onto a new layout (an
     elastic restart on a mesh of another shape): each leaf placed by its
     `distributed.context.NamedSharding`.
@@ -34,7 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..distributed.context import rank_and_world
+from ..distributed.context import in_group, is_dtensor, rank_and_world, whole
 from ..tree import flatten_with_paths, leaves, unflatten
 
 Params = Any
@@ -135,12 +140,21 @@ class CheckpointManager:
         caller may change the tensors afterwards); the file write runs in
         the background, and its error is raised by the next `wait()`.
         Under a process group of several ranks, whose replicas hold the
-        same state, only rank 0 writes."""
+        same state, only rank 0 writes; a DTensor leaf is gathered whole
+        on every rank first (every rank must call `save`)."""
         self.wait()
-        if rank_and_world()[0] != 0:
-            return
         pairs = flatten_with_paths(tree)
-        flat = {_key(p): _to_numpy(t) for p, t in pairs}
+        writer = rank_and_world()[0] == 0
+        if any(is_dtensor(t) for _, t in pairs):
+            flat = {}
+            for p, t in pairs:      # one whole leaf on the device at a time
+                full = whole(t)
+                flat[_key(p)] = _to_numpy(full) if writer else None
+                del full
+        elif writer:
+            flat = {_key(p): _to_numpy(t) for p, t in pairs}
+        if not writer:
+            return
         dtypes = {_key(p): _dtype_name(t) for p, t in pairs}
         structure = _structure(tree)
 
@@ -170,8 +184,12 @@ class CheckpointManager:
                 target: Params | None = None) -> Params:
         """Load a checkpoint: a flat {path: CPU tensor} dict, or with
         `target` the target's tree, each leaf cast to the target leaf's
-        dtype and placed on its device."""
+        dtype and placed on its device (a DTensor target leaf: laid out by
+        its mesh and placements). Under a process group every rank must
+        call it: they read once rank 0's writes are done."""
         self.wait()
+        if in_group():
+            torch.distributed.barrier()
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -193,7 +211,12 @@ class CheckpointManager:
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{tuple(t.shape)} vs {tuple(leaf.shape)}")
-            out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+            t = t.to(device=leaf.device, dtype=leaf.dtype)
+            if is_dtensor(leaf):
+                from torch.distributed.tensor import distribute_tensor
+                t = distribute_tensor(t, leaf.device_mesh, leaf.placements,
+                                      src_data_rank=None)
+            out.append(t)
         return unflatten(target, out)
 
     def restore_sharded(self, target: Params, shardings: Params,

@@ -25,8 +25,9 @@ import torch
 
 __all__ = ["mesh_context", "current_mesh", "logical_to_spec", "shard_act",
            "AXIS_RULES", "Mesh", "NamedSharding", "PartitionSpec", "P",
-           "rank_and_world", "on_mesh", "with_axis", "local_offset",
-           "local_shard", "local_to_dtensor", "reduce_over",
+           "rank_and_world", "in_group", "is_dtensor", "whole", "on_mesh",
+           "with_axis",
+           "local_offset", "local_shard", "local_to_dtensor", "reduce_over",
            "gather_weights"]
 
 _LOCAL = threading.local()
@@ -117,11 +118,29 @@ class Mesh:
         return self.device_mesh().get_group(axis)
 
 
+def in_group() -> bool:
+    """Whether a `torch.distributed` process group is initialised (of one
+    rank or several)."""
+    dist = torch.distributed
+    return dist.is_available() and dist.is_initialized()
+
+
+def is_dtensor(t) -> bool:
+    """Whether `t` is a `torch.distributed.tensor.DTensor`."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """`t` as a plain tensor: a DTensor gathered whole on every rank."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def rank_and_world() -> tuple[int, int]:
     """This process's rank and the world size of the initialised
     `torch.distributed` process group; (0, 1) without one."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
+    if in_group():
+        dist = torch.distributed
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
 
@@ -144,13 +163,17 @@ class NamedSharding:
 
     def place(self, t: torch.Tensor) -> torch.Tensor:
         """`t` laid out by this sharding: on the mesh's one device, or as a
-        DTensor over its ranks (every rank passes the whole tensor)."""
+        DTensor over its ranks. Every rank passes the whole tensor and
+        keeps its own shard of it (no collective), or a DTensor on this
+        mesh, which is redistributed."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+        if isinstance(t, DTensor):
+            return t.redistribute(self.mesh.device_mesh(), self.placements())
         t = t.to(self.mesh.local_device)
         if self.mesh.size == 1:
             return t
-        from torch.distributed.tensor import distribute_tensor
         return distribute_tensor(t, self.mesh.device_mesh(),
-                                 self.placements())
+                                 self.placements(), src_data_rank=None)
 
 
 def mesh_axis_size(name: str) -> int:

@@ -2,7 +2,9 @@
 
 The update is computed in f32 and cast back to each parameter's dtype, in
 the JAX package's order of operations. Moments are f32, or bf16 with
-`moment_dtype="bfloat16"` (halves the optimizer's memory). The step count,
+`moment_dtype="bfloat16"` (halves the optimizer's memory), each laid out
+as its parameter: a DTensor parameter's moments are DTensors of its
+placements, and the update runs on each rank's shards. The step count,
 the learning rate and the clip scale stay tensors on the parameters'
 device, so a step reads nothing back to the host.
 """
@@ -54,8 +56,8 @@ def init_state(cfg: AdamWConfig, params: Params) -> dict:
     mdt = torch.bfloat16 if cfg.moment_dtype == "bfloat16" else torch.float32
     dev = leaves(params)[0].device
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=mdt, device=p.device)
+    def zeros(p):       # laid out as `p` (a DTensor's moments are too)
+        return torch.zeros_like(p, dtype=mdt)
 
     return {
         "step": torch.zeros((), dtype=torch.int32, device=dev),

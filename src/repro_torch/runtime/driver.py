@@ -16,6 +16,15 @@ detection, elastic rescale.
     surviving rank count; parameters are restored with the new shardings
     via `CheckpointManager.restore_sharded`.
 
+Under a process group every rank takes the same branch:
+after each attempt of a step one all-reduce (MAX) of a failure flag over
+the world says whether any rank failed, and then every rank retries (its
+own result, if it had one, is dropped), or after the last retry every
+rank restores from the same checkpoint; the counts are the same on every
+rank. A failure that leaves the step's collectives unmatched (a rank that
+dies inside one) hangs the others there: that needs the communicator
+aborted, which this driver does not do.
+
 A step is committed once its loss is ready on the device: on a card the
 driver waits for the loss's stream, so a step's wall time includes its
 device time, and an error the device raises asynchronously surfaces inside
@@ -35,7 +44,7 @@ import numpy as np
 import torch
 
 from ..checkpoint.manager import CheckpointManager
-from ..distributed.context import Mesh, rank_and_world
+from ..distributed.context import Mesh, in_group, rank_and_world
 from ..tree import leaves
 
 Params = Any
@@ -93,6 +102,18 @@ class ElasticMesh:
         return Mesh(dev, ("data", "model"), device_type)
 
 
+def _any_rank(failed: bool, like) -> bool:
+    """Whether this rank or any other failed (an all-reduce MAX over the
+    world, on `like`'s device); `failed` itself outside a process group."""
+    if not in_group():
+        return failed
+    if not torch.is_tensor(like):
+        like = leaves(like)[0]
+    flag = torch.tensor([int(failed)], dtype=torch.int32, device=like.device)
+    torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+    return bool(flag.item())
+
+
 def _wait_ready(t) -> None:
     """Block until the device has produced `t` (a tensor, or a tree whose
     first leaf stands for it): a sync of its CUDA stream, nothing on the
@@ -148,15 +169,19 @@ class TrainDriver:
     def _guarded_step(self, state, batch):
         last = None
         for _ in range(self.cfg.max_retries + 1):
+            out, err = None, None
             try:
                 params, opt_state, metrics = self.train_step(
                     state[0], state[1], batch)
                 # commit: block until the step really finished
                 _wait_ready(metrics.get("loss", params))
-                return (params, opt_state)
+                out = (params, opt_state)
             except Exception as e:  # noqa: BLE001 — retry any device error
-                self.failures += 1
-                last = e
+                err = e
+            if not _any_rank(err is not None, state[0]):
+                return out
+            self.failures += 1
+            last = err or RuntimeError("the step failed on another rank")
         raise last
 
     @property

@@ -6,11 +6,14 @@ perplexities in its format.
 """
 import contextlib
 import io
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.bench import kernel_bench
 from repro_torch.paper import (common, fig3_delta, fig45_bounds,
                                massdiff_speed, run as paper_run,
                                table1_blocksize, table2_formats,
@@ -78,9 +81,27 @@ def test_massdiff_speed_and_the_runner(monkeypatch, tiny_args):
                 table6_permutations, table2_formats):
         monkeypatch.setattr(mod, "main", lambda argv, m=mod: calls.append(
             (m.__name__, argv)))
+    monkeypatch.setattr(kernel_bench, "main", lambda argv: calls.append(
+        (kernel_bench.__name__, argv)))
     monkeypatch.setattr(massdiff_speed, "main", lambda argv: 1 / 0)
     out = _stdout(paper_run.main, tiny_args)
     assert "massdiff_speed" in out and "fail:ZeroDivisionError" in out
     assert "table34_opcounts" in out and "===== table2_formats" in out
-    assert len(calls) == 6 and all(a[-len(tiny_args):] == tiny_args
-                                   for _, a in calls)
+    assert "kernel_bench" in out and "===== kernel_bench" in out
+    assert len(calls) == 7 and all(a[-len(tiny_args):] == tiny_args
+                                   for _, a in calls[:-1])
+    # the kernel bench, last: the runner's --device alone, and its record
+    # out of artifacts/
+    name, argv = calls[-1]
+    assert name == kernel_bench.__name__
+    assert argv[:2] == ["--device", "cpu"] and argv[2] == "--out"
+    assert len(argv) == 4 and "artifacts" not in Path(argv[3]).parts
+
+
+def test_the_runners_kernel_bench_job_at_a_tiny_size(tmp_path):
+    out = tmp_path / "BENCH_kernels.json"
+    _stdout(kernel_bench.main, ["--smoke", "--reduced", "--device", "cpu",
+                                "--out", str(out)])
+    rec = json.loads(out.read_text())["history"][-1]
+    assert rec["smoke"] and rec["reduced"] and rec["rows"]
+    assert rec["device"]["platform"] == "cpu"
