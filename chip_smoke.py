@@ -1858,37 +1858,70 @@ FAMILY_ARGS = ["--slots", "4", "--page-size", "16", "--prefill-chunk", "32",
                "--max-len", "512", "--device", "cuda"]
 FAMILY_SERVE = ["--requests", "8", "--max-new", "16", "--prompt-len",
                 "48-158"]
+# deepseek-moe-16b at its registered size (28 layers): 4 requests of one
+# prefill chunk each and 8 new tokens, to fit the script's time limit
+FULL_DEPTH_SERVE = ["--requests", "4", "--max-new", "8", "--prompt-len",
+                    "24-32"]
 # (label, arch, launcher args, the checks run on the run's adapter);
-# deepseek-moe-16b at full width, its depth cut to 4 layers (rtn_only) and
-# to 1 (perq_star: GPTQ/Qronos over 64 experts x 3 weights a layer)
+# deepseek-moe-16b at full size through perq_dagger (MassDiff, learned R1,
+# block R3, RTN), and at full width cut to 1 layer through perq_star
+# (GPTQ/Qronos over 64 experts x 3 weights a layer)
 FAMILY_RUNS = (
-    ("mamba2-1.3b, bf16 (--no-quant)", "mamba2-1.3b", ["--no-quant"],
-     ("graph", "chunked")),
-    ("mamba2-1.3b, fake-quant perq_star (the default)", "mamba2-1.3b", [],
-     ("graph",)),
-    ("zamba2-1.2b, bf16 (--no-quant)", "zamba2-1.2b", ["--no-quant"],
-     ("graph", "parity", "replay")),
-    ("zamba2-1.2b, fake-quant perq_star (the default)", "zamba2-1.2b", [],
-     ("graph",)),
-    ("deepseek-moe-16b, 4 layers, fake-quant rtn_only", "deepseek-moe-16b",
-     ["--layers", "4", "--preset", "rtn_only"], ("graph", "parity")),
+    ("mamba2-1.3b, bf16 (--no-quant)", "mamba2-1.3b",
+     ["--no-quant"] + FAMILY_SERVE, ("graph", "chunked")),
+    ("mamba2-1.3b, fake-quant perq_star (the default)", "mamba2-1.3b",
+     FAMILY_SERVE, ("graph",)),
+    ("zamba2-1.2b, bf16 (--no-quant)", "zamba2-1.2b",
+     ["--no-quant"] + FAMILY_SERVE, ("graph", "parity", "replay")),
+    ("zamba2-1.2b, fake-quant perq_star (the default)", "zamba2-1.2b",
+     FAMILY_SERVE, ("graph",)),
+    ("deepseek-moe-16b, 28 layers, fake-quant perq_dagger",
+     "deepseek-moe-16b", ["--preset", "perq_dagger"] + FULL_DEPTH_SERVE,
+     ("graph", "parity")),
     ("deepseek-moe-16b, 1 layer, fake-quant perq_star (the default)",
-     "deepseek-moe-16b", ["--layers", "1"], ("graph",)),
+     "deepseek-moe-16b", ["--layers", "1"] + FAMILY_SERVE, ("graph",)),
 )
+# the f32 twin of a model whose f32 copy would not fit beside it holds its
+# first layers only (deepseek-moe-16b: 63 GiB whole, 9 GiB for 4 layers)
+TWIN_LAYERS = {"deepseek-moe-16b": 4}
 
 
 class PTQProbe:
-    """Wraps `core.pipeline.quantize_model` for one launcher run: its
-    seconds and peak device memory, and the fake-quant model's logit MSE
-    against the bf16 model on a held-out [2, 64] batch. The peak memory
-    statistic restarts after it, so the launcher record's peak is the
-    serving one."""
+    """Wraps `Model.init` and `core.pipeline.quantize_model` for one
+    launcher run: the seconds and peak device memory of each, and the
+    fake-quant model's logit MSE against the bf16 model on a held-out [2,
+    64] batch. The peak memory statistic restarts before each and when the
+    launcher builds its adapter (after it has dropped the bf16 tree), so
+    the launcher record's peak is the serving one."""
 
     def __init__(self):
         from repro_torch.core import pipeline as PL
+        from repro_torch.launch import serve as serve_cli
+        from repro_torch.models.transformer import Model
         self.PL, self.real, self.rec = PL, PL.quantize_model, None
+        self.Model, self.real_init, self.init_rec = Model, Model.init, None
+        self.cli, self.real_servable = serve_cli, serve_cli.as_servable
 
     def __enter__(self):
+        def servable(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            return self.real_servable(*args, **kw)
+        self.cli.as_servable = servable
+
+        def timed_init(model, gen):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = self.real_init(model, gen)
+            torch.cuda.synchronize()
+            self.init_rec = {
+                "init_seconds": time.perf_counter() - t0,
+                "init_peak_device_memory_gib":
+                    torch.cuda.max_memory_allocated() / 2 ** 30}
+            return params
+        self.Model.init = timed_init
+
         def timed(model, params, calib, cfg):
             held = {"tokens": torch.from_numpy(np.random.default_rng(2).integers(
                 0, model.cfg.vocab, (2, 64))).to(DEV)}
@@ -1908,13 +1941,14 @@ class PTQProbe:
                         "held_out": "[2, 64] tokens"}
             del want, got
             torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
             return res
         self.PL.quantize_model = timed
         return self
 
     def __exit__(self, *exc):
         self.PL.quantize_model = self.real
+        self.Model.init = self.real_init
+        self.cli.as_servable = self.real_servable
 
 
 def _family_prompts(vocab, lens, seed):
@@ -1988,30 +2022,36 @@ def family_graph(adapter, attn_per_step):
     return rec
 
 
-def _f32_twin(adapter):
+def _f32_twin(adapter, layers=None):
     """The served model's plain f32 twin (no PTQ hooks) over f32 copies of
-    its parameters, as an engine adapter with f32 pages and registers. MoE
-    evaluates every expert (`moe_dense_oracle`): capacity drops depend on
-    the chunk's length, so chunked and whole-sequence runs would route
-    differently."""
+    its parameters, as an engine adapter with f32 pages and registers; with
+    `layers`, of its first `layers` layers only. MoE evaluates every expert
+    (`moe_dense_oracle`): capacity drops depend on the chunk's length, so
+    chunked and whole-sequence runs would route differently."""
     from repro_torch.models.transformer import build_model
     from repro_torch.serve.engine import as_servable
     from repro_torch.tree import tree_map
     cfg = dataclasses.replace(adapter.cfg, param_dtype="float32",
                               compute_dtype="float32")
+    params = adapter.params
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        params = {**params, "layers": tree_map(lambda t: t[:layers],
+                                               params["layers"])}
     return as_servable(build_model(cfg, moe_dense_oracle=cfg.uses_moe),
-                       tree_map(lambda t: t.float(), adapter.params))
+                       tree_map(lambda t: t.float(), params))
 
 
-def family_parity(adapter):
+def family_parity(adapter, layers=None):
     """Whole-model logits with the attention kernel against
-    `use_kernels(False)` from one state, on the f32 twin: a 32-token and a
-    15-token prefill chunk of 2 sequences, then one per-slot decode step,
-    each from a copy of the same state; and the kernels' run against
-    `Model.forward` over the whole sequence. Bound: MODEL_F32_FRAC of
-    max|logit| (phase ptq's, for the dense Model's f32 pages)."""
+    `use_kernels(False)` from one state, on the f32 twin (of the first
+    `layers` layers): a 32-token and a 15-token prefill chunk of 2
+    sequences, then one per-slot decode step, each from a copy of the same
+    state; and the kernels' run against `Model.forward` over the whole
+    sequence. Bound: MODEL_F32_FRAC of max|logit| (phase ptq's, for the
+    dense Model's f32 pages)."""
     from repro_torch.tree import tree_map
-    twin = _f32_twin(adapter)
+    twin = _f32_twin(adapter, layers)
     model, params = twin.model, twin.params
     rng = np.random.default_rng(3)
     toks = torch.from_numpy(rng.integers(0, model.cfg.vocab, (2, 48))).to(DEV)
@@ -2047,6 +2087,7 @@ def family_parity(adapter):
            "argmax_agree_kernel_vs_forward": float(
                (got.argmax(-1) == want.argmax(-1)).float().mean()),
            "attention_launches": launches, "bound": MODEL_F32_FRAC,
+           "twin_layers": model.cfg.n_layers,
            "finite": bool(torch.isfinite(got).all())}
     rec["ok"] = (rec["finite"] and launches == 3 * n_attn
                  and max(errs) <= MODEL_F32_FRAC
@@ -2119,22 +2160,27 @@ def family_replay(adapter):
 
 def phase_families():
     """The MoE, SSM and hybrid families through the launcher on the card:
-    mamba2-1.3b and zamba2-1.2b at full size, deepseek-moe-16b at full
-    width (4 and 1 layers), each `--no-quant` or through
-    `quantize_model`, decode graphed; then on each run's adapter the
-    checks `FAMILY_RUNS` names."""
+    mamba2-1.3b, zamba2-1.2b and deepseek-moe-16b at full size (deepseek
+    also cut to 1 layer), each `--no-quant` or through `quantize_model`,
+    decode graphed; then on each run's adapter the checks `FAMILY_RUNS`
+    names."""
     from repro_torch.tree import leaves as tree_leaves
     runs, problems = [], []
     for label, arch, extra, checks in FAMILY_RUNS:
+        t_run = time.perf_counter()
         expect = () if arch.startswith("mamba2") else ("paged_attention",)
+        # an earlier run's engines and graphs are freed by the cycle
+        # collector: free them before this run's peaks are read
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         probe = PTQProbe()
         with probe:
-            result, rec = run_launcher(label, extra + FAMILY_SERVE,
-                                       expect=expect,
+            result, rec = run_launcher(label, extra, expect=expect,
                                        base=["--arch", arch] + FAMILY_ARGS)
         engine = result["engine"]
         adapter, cfg = engine.adapter, engine.adapter.cfg
+        rec.update(probe.init_rec or {})
         rec.update(probe.rec or {})
         rec["model"] = (f"{cfg.name}: {cfg.n_layers} layers, d_model "
                         f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.param_dtype}")
@@ -2153,7 +2199,8 @@ def phase_families():
         for check in checks:
             t0 = time.perf_counter()
             out = {"graph": lambda: family_graph(adapter, attn),
-                   "parity": lambda: family_parity(adapter),
+                   "parity": lambda: family_parity(
+                       adapter, TWIN_LAYERS.get(arch)),
                    "chunked": lambda: family_chunked(adapter),
                    "replay": lambda: family_replay(adapter)}[check]()
             out["seconds"] = time.perf_counter() - t0
@@ -2161,6 +2208,7 @@ def phase_families():
             if not out["ok"]:
                 rec["problems"].append(f"{check}: {out}")
         rec["ok"] = not rec["problems"]
+        rec["run_seconds"] = time.perf_counter() - t_run
         del adapter
         torch.cuda.empty_cache()
         runs.append(rec)

@@ -31,8 +31,8 @@ each expert's own P3 and rounding on the tokens routed to it); encoder
 out_proj with a head-preserving MassDiff permutation absorbed into the
 Mamba2 inner channels; hybrid adds its shared attention + FFN block,
 calibrated on every call of it. The pipeline runs on the parameters'
-device: weights, captures and Hessians stay f32 tensors there, and each
-layer's captures are freed once the layer is rounded.
+device and streams the layers: weights, captures and Hessians stay f32
+tensors there, one layer's at a time (`quantize_model`).
 """
 from __future__ import annotations
 
@@ -109,9 +109,16 @@ class _Capture:
         self.data: dict[tuple[str, int], list[torch.Tensor]] = \
             defaultdict(list)
         self._count: dict[str, int] = defaultdict(int)
+        self._counts: dict[int, dict[str, int]] = {}
 
     def reset_forward(self):
         self._count = defaultdict(int)
+
+    def resume(self, b: int):
+        """Go on numbering the records of calibration batch `b`'s forward:
+        run one layer at a time over every batch, the model's records are
+        numbered as one whole forward of each batch numbers them."""
+        self._count = self._counts.setdefault(b, defaultdict(int))
 
     def _record(self, x, tag: str, keep_dims: int = 1):
         occ = self._count[tag]
@@ -296,54 +303,76 @@ def quantize_model(model: Model, params: Params,
     Returns the fake-quantised parameters in the model's parameter dtype,
     the runtime hooks and a report (`r1`, and per FFN, expert or SSM
     out-projection the R3 site's largest block l1 mass before and after
-    the permutation)."""
+    the permutation).
+
+    The layers stream: each is copied to f32 and folded, run over every
+    calibration batch under the capture hooks (the folded, unquantised
+    model's hidden states, carried in the model's dtype from layer to
+    layer), then rotated, permuted, rounded and written into its slot of
+    an output tree allocated once. Only the embedding, the head, the final
+    norm and the hybrid's shared block are held in f32 whole, so the
+    device holds the input and output trees and one layer's working set. A
+    learned R1 reads layers 0-3, which are calibrated before any layer is
+    rounded. Every step after the fold is per layer, so the result is the
+    whole-model pipeline's."""
     cfg_a = model.cfg
     fam = cfg_a.family
     ssm_like = fam in ("ssm", "hybrid")
     d = cfg_a.d_model
     n_layers = cfg_a.n_layers
+    pdt = model.pdt
     dev = params["lm_head"].device
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.seed)
     report: dict[str, Any] = {"per_layer": []}
 
-    P = tree_map(lambda a: a.to(torch.float32).clone(), params)
-    L = P["layers"]
-    A = L.get("attn")          # stacked attention weights [L, ...]
-    F = L.get("ffn")           # stacked dense-FFN weights
-    MOE = L.get("moe")         # stacked experts [L, E, ...]
-    SSM = L.get("ssm")
+    def f32(a):
+        return a.to(torch.float32, copy=True)
+
+    layers = params["layers"]
+    P = {k: tree_map(f32, v) for k, v in params.items() if k != "layers"}
     SH = P.get("shared_attn")  # the hybrid's shared block
-    ffn_like = F if F is not None else (SH["ffn"] if SH is not None
-                                        else None)
+    moe = "moe" in layers
+    ffn_like = layers["ffn"] if "ffn" in layers else (
+        SH["ffn"] if SH is not None else None)
     up_names = ("w_gate", "w_up") \
         if ffn_like is None or "w_gate" in ffn_like else ("w_up",)
 
     # ---- 1. fold norm scales (function-preserving) -------------------------
     rmsnorm_stream = cfg_a.norm == "rmsnorm"
-    if rmsnorm_stream:
-        for i in range(n_layers):
-            if ssm_like:
-                g = L["norm"]["scale"][i]
-                SSM["in_proj"][i] = g[:, None] * SSM["in_proj"][i]
-                continue
-            g = L["attn_norm"]["scale"][i]
+
+    def fold(lay: dict) -> dict:
+        """One layer's f32 leaves (its own copies) with its norm scales
+        absorbed, in place."""
+        if not rmsnorm_stream:
+            return lay
+        if ssm_like:
+            lay["ssm"]["in_proj"].mul_(lay["norm"]["scale"][:, None])
+        else:
+            g = lay["attn_norm"]["scale"]
             for w in ("wq", "wk", "wv"):
-                A[w][i] = g[:, None] * A[w][i]
-            g = L["ffn_norm"]["scale"][i]
-            if MOE is not None:
-                MOE["router"][i] = g[:, None] * MOE["router"][i]
+                lay["attn"][w].mul_(g[:, None])
+            g = lay["ffn_norm"]["scale"]
+            if moe:
+                M = lay["moe"]
+                M["router"].mul_(g[:, None])
                 for w in ("w_gate", "w_up"):
-                    MOE[w][i] = g[None, :, None] * MOE[w][i]
-                if "shared_gate" in MOE:
+                    M[w].mul_(g[None, :, None])
+                if "shared_gate" in M:
                     for w in ("shared_gate", "shared_up"):
-                        MOE[w][i] = g[:, None] * MOE[w][i]
+                        M[w].mul_(g[:, None])
             else:
                 for w in up_names:
-                    F[w][i] = g[:, None] * F[w][i]
+                    lay["ffn"][w].mul_(g[:, None])
         for nm in ("norm", "attn_norm", "ffn_norm"):
-            if nm in L:
-                L[nm]["scale"].fill_(1.0)
+            if nm in lay:
+                lay[nm]["scale"].fill_(1.0)
+        return lay
+
+    def layer_f32(i: int) -> dict:
+        return fold(tree_map(lambda a: f32(a[i]), layers))
+
+    if rmsnorm_stream:
         if SH is not None:
             g = SH["attn_norm"]["scale"]
             for w in ("wq", "wk", "wv"):
@@ -356,29 +385,31 @@ def quantize_model(model: Model, params: Params,
         P["lm_head"] = P["final_norm"]["scale"][:, None] * P["lm_head"]
         P["final_norm"]["scale"].fill_(1.0)
 
-    # ---- 2. calibrate on the folded model ----------------------------------
+    # ---- 2. calibrate on the folded model, one layer at a time -------------
     cap = _Capture()
     cap_model = build_model(cfg_a, quant_hooks=cap.hooks())
-    folded = tree_map(lambda a: a.to(model.pdt), P)
-    for batch in calib_batches:
-        cap.reset_forward()
-        cap_model.forward(folded, batch)
-    del folded
+    inputs = {k: P[k].to(pdt) for k in ("embed", "frontend_proj") if k in P}
+    xs = [cap_model.embed_inputs(inputs, batch) for batch in calib_batches]
+    del inputs
+    shared = None if SH is None else tree_map(lambda a: a.to(pdt), SH)
+
+    def calibrate(i: int, lay: dict):
+        """Layer `i` (and a hybrid's shared block where a group ends) over
+        every batch: its captures, and the hidden states it hands on."""
+        blk = tree_map(lambda a: a.to(pdt), lay)
+        for b, x in enumerate(xs):
+            cap.resume(b)
+            xs[b] = cap_model.layer_step(i, x, blk, shared)
 
     # ---- 3. stream rotation R1 + per-head R2 -------------------------------
     use_stream_rot = cfg.rotation != "none" and rmsnorm_stream
     r1 = _stream_rotation(d, cfg.rotation, cfg.block_size, gen, dev) \
         if use_stream_rot else None
-    if r1 is not None and cfg.rotation in ("spinquant", "mr_learned"):
-        tag, wsrc = ("ssm_in", SSM["in_proj"]) if ssm_like \
-            else ("qkv", A["wq"])
-        layers = [i for i in range(min(n_layers, 4)) if cap.has(tag, i)]
-        if layers:
-            r1 = _learn_stream_rotation(
-                r1, [cap.get(tag, i) for i in layers],
-                [wsrc[i] for i in layers], cfg,
-                block=cfg.rotation == "mr_learned")
     report["r1"] = None if r1 is None else cfg.rotation
+    # a learned R1 reads the captures and wq of layers 0-3
+    n_learn = min(n_layers, 4) \
+        if cfg.rotation in ("spinquant", "mr_learned") and r1 is not None \
+        else 0
 
     dh = cfg_a.head_dim
     r2 = _normalized_hadamard(dh, dev) \
@@ -402,36 +433,29 @@ def quantize_model(model: Model, params: Params,
         out["w_down"] = t["w_down"] @ r1
         return out
 
-    if r1 is not None:
-        for i in range(n_layers):
-            if ssm_like:
-                SSM["in_proj"][i] = r1.T @ SSM["in_proj"][i]
-                SSM["out_proj"][i] = SSM["out_proj"][i] @ r1
-                continue
-            names = ("wq", "wk", "wv", "wo") + (("bv",) if "bv" in A else ())
-            for w, v in rotate_attn({w: A[w][i] for w in names}).items():
-                A[w][i] = v
-            if MOE is not None:
-                MOE["router"][i] = r1.T @ MOE["router"][i]
-                for w in ("w_gate", "w_up"):
-                    # the d axis of [E, d, f]: R1^T W_e per expert
-                    MOE[w][i] = r1.T @ MOE[w][i]
-                MOE["w_down"][i] = MOE["w_down"][i] @ r1
-                if "shared_gate" in MOE:
-                    for w in ("shared_gate", "shared_up"):
-                        MOE[w][i] = r1.T @ MOE[w][i]
-                    MOE["shared_down"][i] = MOE["shared_down"][i] @ r1
-            else:
-                for w, v in rotate_ffn({w: F[w][i] for w in
-                                        up_names + ("w_down",)}).items():
-                    F[w][i] = v
-        if SH is not None:
-            SH["attn"].update(rotate_attn(SH["attn"]))
-            SH["ffn"].update(rotate_ffn(SH["ffn"]))
-        for name in ("embed", "frontend_proj"):
-            if name in P:
-                P[name] = P[name] @ r1
-        P["lm_head"] = r1.T @ P["lm_head"]
+    def rotate_layer(lay: dict):
+        if ssm_like:
+            S = lay["ssm"]
+            S["in_proj"] = r1.T @ S["in_proj"]
+            S["out_proj"] = S["out_proj"] @ r1
+            return
+        A = lay["attn"]
+        names = ("wq", "wk", "wv", "wo") + (("bv",) if "bv" in A else ())
+        A.update(rotate_attn({w: A[w] for w in names}))
+        if not moe:
+            F = lay["ffn"]
+            F.update(rotate_ffn({w: F[w] for w in up_names + ("w_down",)}))
+            return
+        M = lay["moe"]
+        M["router"] = r1.T @ M["router"]
+        for w in ("w_gate", "w_up"):
+            # the d axis of [E, d, f]: R1^T W_e per expert
+            M[w] = r1.T @ M[w]
+        M["w_down"] = M["w_down"] @ r1
+        if "shared_gate" in M:
+            for w in ("shared_gate", "shared_up"):
+                M[w] = r1.T @ M[w]
+            M["shared_down"] = M["shared_down"] @ r1
 
     # transformed-activation helpers (captures are post-fold, pre-rotation)
     def tx(x):
@@ -442,7 +466,7 @@ def quantize_model(model: Model, params: Params,
             return x
         return (x.reshape(len(x), -1, dh) @ r2).reshape(x.shape)
 
-    # ---- 4+5. permutation merge + rounding, layer by layer -----------------
+    # ---- 4+5. permutation merge + rounding ---------------------------------
     def block_mass(h, perm_t):
         mb = min(cfg.block_size, h.shape[-1])
         mass = h.abs().mean(dim=0)
@@ -476,33 +500,30 @@ def quantize_model(model: Model, params: Params,
         block_mass(h_down, perm_t)
         return out
 
-    def store(tree: dict, i, new: dict):
-        for w, v in new.items():
-            tree[w][i] = v
-
-    for i in range(n_layers):
+    def round_layer(i: int, lay: dict):
         if ssm_like:
-            SSM["in_proj"][i] = _round_weight(
-                SSM["in_proj"][i], tx(cap.pop("ssm_in", i)), cfg)
+            S = lay["ssm"]
+            S["in_proj"] = _round_weight(S["in_proj"],
+                                         tx(cap.pop("ssm_in", i)), cfg)
             y = cap.pop("ssm_out", i)
             d_inner = y.shape[-1]
             perm = _ffn_permutation(y, cfg, d=d_inner,
                                     head_dim=cfg_a.ssm_head_dim)
             r3 = _r3_matrix(d_inner, cfg, dev)
-            _permute_ssm_channels(P, i, perm, cfg_a)
+            _permute_ssm_layer(S, perm)
             perm_t = torch.as_tensor(perm, device=dev)
-            SSM["out_proj"][i] = _round_weight(
-                r3.T @ SSM["out_proj"][i][perm_t, :], y[:, perm_t] @ r3, cfg)
+            S["out_proj"] = _round_weight(
+                r3.T @ S["out_proj"][perm_t, :], y[:, perm_t] @ r3, cfg)
             block_mass(y, perm_t)
-            del y
-            continue
-        store(A, i, do_attn({w: A[w][i] for w in ("wq", "wk", "wv", "wo")},
-                            cap.pop("qkv", i), cap.pop("wo", i)))
+            return
+        A = lay["attn"]
+        A.update(do_attn(A, cap.pop("qkv", i), cap.pop("wo", i)))
         x_ffn = cap.pop("ffn", i)
-        if MOE is None:
-            store(F, i, do_ffn({w: F[w][i] for w in up_names + ("w_down",)},
-                               x_ffn, cap.pop("down", i)))
-            continue
+        if not moe:
+            F = lay["ffn"]
+            F.update(do_ffn(F, x_ffn, cap.pop("down", i)))
+            return
+        M = lay["moe"]
         h_all = cap.pop("moe_down", i)                 # [N, E, C, f]
         e = cfg_a.n_experts
         x_exp = cap.pop("expert_in", i).reshape(h_all.shape[0], e, -1, d)
@@ -516,22 +537,61 @@ def quantize_model(model: Model, params: Params,
                 x_live = x_exp[:, ex].reshape(-1, d)[live]
             else:
                 h_live, x_live = h_e, x_exp.new_zeros((2, d))
-            new = do_ffn({w: MOE[w][i, ex]
-                          for w in ("w_gate", "w_up", "w_down")},
+            new = do_ffn({w: M[w][ex] for w in ("w_gate", "w_up", "w_down")},
                          x_live, h_live, names=("w_gate", "w_up"))
             for w, v in new.items():
-                MOE[w][i, ex] = v
+                M[w][ex] = v
         del h_all, x_exp
-        if "shared_gate" in MOE:
+        if "shared_gate" in M:
             # the shared experts' down projection is the only "down" hook
             # of a MoE layer
-            new = do_ffn({"w_gate": MOE["shared_gate"][i],
-                          "w_up": MOE["shared_up"][i],
-                          "w_down": MOE["shared_down"][i]},
+            new = do_ffn({"w_gate": M["shared_gate"], "w_up": M["shared_up"],
+                          "w_down": M["shared_down"]},
                          x_ffn, cap.pop("down", i), names=("w_gate", "w_up"))
             for w, v in new.items():
-                MOE["shared_" + w[2:]][i] = v
-        del x_ffn
+                M["shared_" + w[2:]] = v
+
+    qlayers = tree_map(lambda a: torch.empty_like(a, dtype=pdt), layers)
+
+    def finish(i: int, lay: dict):
+        """Layer `i` rotated, permuted and rounded into its output slot."""
+        if r1 is not None:
+            rotate_layer(lay)
+        round_layer(i, lay)
+        tree_map(lambda o, t: o[i].copy_(t), qlayers, lay)
+
+    w_learn = []
+    for i in range(n_layers):
+        lay = layer_f32(i)
+        calibrate(i, lay)
+        if i >= n_learn:
+            finish(i, lay)
+        else:
+            w_learn.append(lay["ssm"]["in_proj"] if ssm_like
+                           else lay["attn"]["wq"])
+        del lay         # before the next layer's copy is made
+        if i == n_learn - 1:
+            tag = "ssm_in" if ssm_like else "qkv"
+            js = [j for j in range(n_learn) if cap.has(tag, j)]
+            if js:
+                r1 = _learn_stream_rotation(
+                    r1, [cap.get(tag, j) for j in js],
+                    [w_learn[j] for j in js], cfg,
+                    block=cfg.rotation == "mr_learned")
+            del w_learn
+            # the fold again: the same f32 leaves as the calibration's
+            for j in range(n_learn):
+                finish(j, layer_f32(j))
+    del xs, shared
+
+    if r1 is not None:
+        if SH is not None:
+            SH["attn"].update(rotate_attn(SH["attn"]))
+            SH["ffn"].update(rotate_ffn(SH["ffn"]))
+        for name in ("embed", "frontend_proj"):
+            if name in P:
+                P[name] = P[name] @ r1
+        P["lm_head"] = r1.T @ P["lm_head"]
     if SH is not None:
         SH["attn"].update(do_attn(SH["attn"], cap.pop_all("qkv"),
                                   cap.pop_all("wo")))
@@ -554,7 +614,8 @@ def quantize_model(model: Model, params: Params,
     def ssm_out_proj_fn(y, w):
         return quantize_act(_apply_r3_online(y, cfg), act_spec) @ w
 
-    qparams = tree_map(lambda a: a.to(model.pdt), P)
+    qparams = {k: qlayers if k == "layers"
+               else tree_map(lambda a: a.to(pdt), P[k]) for k in params}
     return PTQResult(params=qparams,
                      hooks={"act_in": act_in, "down_proj_fn": down_proj_fn,
                             "moe_down_proj_fn": moe_down_proj_fn,
@@ -562,24 +623,30 @@ def quantize_model(model: Model, params: Params,
                      config=cfg, report=report)
 
 
-def _permute_ssm_channels(P: Params, i: int, perm: np.ndarray, cfg_a):
-    """Permute the Mamba2 inner channels of layer `i` jointly across (z, x,
-    conv, norm) so the out-projection's permutation is absorbed.
-    Head-preserving permutations only: the conv is depthwise and the SSD
-    elementwise in the within-head channel, so the region is
+def _permute_ssm_layer(ssm: Params, perm: np.ndarray):
+    """Permute one layer's Mamba2 inner channels jointly across (z, x,
+    conv, norm), in place, so the out-projection's permutation is
+    absorbed. Head-preserving permutations only: the conv is depthwise and
+    the SSD elementwise in the within-head channel, so the region is
     permutation-equivariant."""
     d_inner = len(perm)
-    ssm = P["layers"]["ssm"]
-    perm_t = torch.as_tensor(perm, device=ssm["in_proj"].device)
-    in_proj = ssm["in_proj"][i]
-    ssm["in_proj"][i] = torch.cat(
+    in_proj = ssm["in_proj"]
+    perm_t = torch.as_tensor(perm, device=in_proj.device)
+    in_proj.copy_(torch.cat(
         [in_proj[:, :d_inner][:, perm_t],
          in_proj[:, d_inner:2 * d_inner][:, perm_t],
-         in_proj[:, 2 * d_inner:]], dim=1)
-    conv_w, conv_b = ssm["conv_w"][i], ssm["conv_b"][i]
+         in_proj[:, 2 * d_inner:]], dim=1))
+    conv_w, conv_b = ssm["conv_w"], ssm["conv_b"]
     conv_w[:, :d_inner] = conv_w[:, :d_inner][:, perm_t]
     conv_b[:d_inner] = conv_b[:d_inner][perm_t]
-    ssm["norm_scale"][i] = ssm["norm_scale"][i][perm_t]
+    ssm["norm_scale"].copy_(ssm["norm_scale"][perm_t])
+
+
+def _permute_ssm_channels(P: Params, i: int, perm: np.ndarray, cfg_a):
+    """`_permute_ssm_layer` on layer `i` of the stacked tree `P` (the
+    reference's form)."""
+    _permute_ssm_layer({k: v[i] for k, v in P["layers"]["ssm"].items()},
+                       perm)
 
 
 def build_quantized_model(model: Model, result: PTQResult) -> Model:

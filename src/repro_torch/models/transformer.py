@@ -38,6 +38,7 @@ from torch.utils import checkpoint as ckpt
 from ..distributed.context import (gather_weights, local_offset,
                                    local_shard, on_mesh, reduce_over,
                                    shard_act, with_axis)
+from ..tree import tree_map
 
 from . import layers as L
 from . import moe as M
@@ -62,10 +63,18 @@ def _save_dots(ctx, op, *args, **kwargs):
 REMAT_POLICIES = ("nothing", "dots")
 
 
-def _stack(nodes: list):
-    if isinstance(nodes[0], dict):
-        return {k: _stack([n[k] for n in nodes]) for k in nodes[0]}
-    return torch.stack(nodes)
+def _stack_draws(draw, n: int) -> Params:
+    """`torch.stack` over `n` calls of `draw()`, built in place: each draw
+    is copied into its slot of leaves allocated once, so the peak is the
+    stack and one draw."""
+    out = None
+    for i in range(n):
+        blk = draw()
+        if out is None:
+            out = tree_map(lambda t: t.new_empty((n, *t.shape)), blk)
+        tree_map(lambda o, t: o[i].copy_(t), out, blk)
+        del blk
+    return out
 
 
 class _MetaGenerator(torch.Generator):
@@ -149,8 +158,8 @@ class Model:
         p: Params = {}
         if cfg.frontend != "audio_frames":
             p["embed"] = L._normal(gen, (cfg.vocab, cfg.d_model), 0.02, dt)
-        p["layers"] = _stack([self._init_block(gen)
-                              for _ in range(cfg.n_layers)])
+        p["layers"] = _stack_draws(lambda: self._init_block(gen),
+                                   cfg.n_layers)
         if cfg.family == "hybrid":
             p["shared_attn"] = self._shared_attn_block(gen)
         p["final_norm"] = L.init_norm(cfg.d_model, cfg.norm, dt, dev)
@@ -232,50 +241,63 @@ class Model:
         n_groups = cfg.n_layers // period
         return n_groups, period, cfg.n_layers - n_groups * period
 
+    def layer_step(self, i: int, x, blk: Params, shared: Params = None, *,
+                   cache=None, shared_caches=None, cache_index=None,
+                   block_table=None, seq_lengths=None, register_index=None,
+                   valid_len=None, remat: bool = False):
+        """Layer `i` (its params `blk`, its cache view `cache`) over `x`;
+        where a hybrid's group of `hybrid_period` layers ends at `i`, then
+        the shared block `shared` on that group's view of `shared_caches`.
+        With `remat` (no caches) each block is checkpointed."""
+        if remat:
+            x = ckpt.checkpoint(self._apply_block, x, blk, None, None,
+                                use_reentrant=False, **self._remat_context())
+        else:
+            x = self._apply_block(x, blk, cache, cache_index,
+                                  block_table=block_table,
+                                  seq_lengths=seq_lengths,
+                                  register_index=register_index,
+                                  valid_len=valid_len)
+        if self.cfg.family != "hybrid":
+            return x
+        n_groups, period, _ = self._hybrid_groups()
+        if (i + 1) % period or (i + 1) // period > n_groups:
+            return x
+        if remat:
+            return ckpt.checkpoint(self._apply_shared, x, shared, None, None,
+                                   use_reentrant=False,
+                                   **self._remat_context())
+        g = (i + 1) // period - 1
+        return self._apply_shared(
+            x, shared, None if shared_caches is None else shared_caches[g],
+            cache_index, block_table=block_table, seq_lengths=seq_lengths)
+
     def _run_layers(self, params: Params, x, *, caches=None,
                     cache_index=None, block_table=None, seq_lengths=None,
                     register_index=None, valid_len=None,
                     remat: bool = False):
-        """Every layer in turn over the views of its params and caches (the
-        caches' views write into the stacked pools); a hybrid runs the
-        shared block after each full group of `hybrid_period` layers, on
-        the group's own kv cache. With `remat` (no caches) each layer is
-        checkpointed."""
+        """Every layer in turn (`layer_step`) over the views of its params
+        and caches (the caches' views write into the stacked pools); a
+        hybrid's shared block runs on each group's own kv cache."""
         cfg = self.cfg
         n = cfg.n_layers
         hybrid = cfg.family == "hybrid"
         layer_caches = caches["ssm"] if hybrid and caches is not None \
             else caches
         views = [None] * n if caches is None else L.unstack(layer_caches, n)
-        if hybrid:
-            n_groups, period, _ = self._hybrid_groups()
-            shared_views = [None] * n_groups if caches is None \
-                else L.unstack(caches["shared"], n_groups)
+        shared_views = None
+        if hybrid and caches is not None:
+            shared_views = L.unstack(caches["shared"],
+                                     self._hybrid_groups()[0])
         for i, (blk, cache) in enumerate(zip(
                 L.unstack(params["layers"], n), views)):
-            if remat:
-                x = ckpt.checkpoint(self._apply_block, x, blk, None, None,
-                                    use_reentrant=False,
-                                    **self._remat_context())
-            else:
-                x = self._apply_block(x, blk, cache, cache_index,
-                                      block_table=block_table,
-                                      seq_lengths=seq_lengths,
-                                      register_index=register_index,
-                                      valid_len=valid_len)
-            if hybrid and (i + 1) % period == 0 \
-                    and (i + 1) // period <= n_groups:
-                g = (i + 1) // period - 1
-                if remat:
-                    x = ckpt.checkpoint(self._apply_shared, x,
-                                        params["shared_attn"], None, None,
-                                        use_reentrant=False,
-                                        **self._remat_context())
-                else:
-                    x = self._apply_shared(x, params["shared_attn"],
-                                           shared_views[g], cache_index,
-                                           block_table=block_table,
-                                           seq_lengths=seq_lengths)
+            x = self.layer_step(i, x, blk, params.get("shared_attn"),
+                                cache=cache, shared_caches=shared_views,
+                                cache_index=cache_index,
+                                block_table=block_table,
+                                seq_lengths=seq_lengths,
+                                register_index=register_index,
+                                valid_len=valid_len, remat=remat)
         return x
 
     def _remat_context(self) -> dict:
@@ -299,7 +321,9 @@ class Model:
     # Forward
     # ------------------------------------------------------------------
 
-    def _embed_inputs(self, params: Params, batch: Params):
+    def embed_inputs(self, params: Params, batch: Params):
+        """The hidden state a batch enters layer 0 with, in the compute
+        dtype."""
         cfg = self.cfg
         proj = gather_weights({"w": params.get("frontend_proj")})["w"] \
             if cfg.frontend is not None else None
@@ -324,7 +348,7 @@ class Model:
                       remat: bool = False) -> torch.Tensor:
         """`forward` carrying gradients to every parameter that requires
         them; `remat=True` checkpoints each layer."""
-        x = self._embed_inputs(params, batch)
+        x = self.embed_inputs(params, batch)
         return self._head(params, self._run_layers(params, x, remat=remat))
 
     def loss_fn(self, params: Params, batch: Params, *,
@@ -412,7 +436,7 @@ class Model:
     def prefill(self, params: Params, batch: Params, caches: Params):
         """Process the prompt from position 0, fill the caches in place;
         returns the last position's logits [B, V] and the caches."""
-        x = self._embed_inputs(params, batch)
+        x = self.embed_inputs(params, batch)
         x = self._run_layers(params, x, caches=caches, cache_index=0)
         return self._head(params, x[:, -1:])[:, 0], caches
 

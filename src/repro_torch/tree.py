@@ -19,20 +19,25 @@ def _children(node):
     return None
 
 
+# The walks recurse through module-level functions: a recursive closure
+# would keep its leaves in a reference cycle (the closure, its own cell)
+# until the garbage collector runs, which holds a layer's worth of device
+# memory per `tree_map` for as long.
+
+def _walk(node, path: tuple, out: list):
+    kids = _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for k, v in kids:
+        _walk(v, path + (k,), out)
+
+
 def flatten_with_paths(tree: Tree) -> list[tuple[tuple, Any]]:
     """[(path, leaf)] in the reference's leaf order; a path is the tuple of
     dict keys and sequence indices from the root."""
     out = []
-
-    def walk(node, path):
-        kids = _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for k, v in kids:
-            walk(v, path + (k,))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 
@@ -40,19 +45,18 @@ def leaves(tree: Tree) -> list:
     return [leaf for _, leaf in flatten_with_paths(tree)]
 
 
+def _build(node, it):
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
+
+
 def unflatten(like: Tree, new_leaves: list) -> Tree:
     """A tree of `like`'s structure holding `new_leaves` in leaf order."""
-    it = iter(new_leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-
-    return build(like)
+    return _build(like, iter(new_leaves))
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
