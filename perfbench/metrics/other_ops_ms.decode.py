@@ -1,0 +1,6 @@
+"""Device ms per step of kernels other than the hand-written ones."""
+from perfbench.harness.readers import other_ops_ms
+
+
+def read(ctx):
+    return other_ops_ms(ctx, "step")
