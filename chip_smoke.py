@@ -934,18 +934,18 @@ def check_observed(rec, result, plain_tokens, trace_path, metrics_path):
     except ValueError as e:
         problems.append(f"artifact refused: {e}")
         n_events = None
-    spans = [e for e in trace["traceEvents"]
-             if e["name"] in ("dispatch.decode", "dispatch.prefill")]
+    spans = [e for e in trace["traceEvents"] if e["name"] == "dispatch.decode"]
     cli = subprocess.run(
         [sys.executable, "-m", "repro_torch.serve.telemetry.check",
          metrics_path, "--trace", trace_path], capture_output=True, text=True,
         timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     if cli.returncode != 0:
         problems.append(f"check CLI exit {cli.returncode}: {cli.stderr}")
-    probe_ms = [e["dur"] / 1e3 for e in spans
-                if e["name"] == "dispatch.decode" and e["args"]["probe"]]
-    plain_ms = [e["dur"] / 1e3 for e in spans
-                if e["name"] == "dispatch.decode" and not e["args"]["probe"]]
+    # the device's clock between the CUDA events around each launch
+    probe_ms = [e["args"]["device_wall_ms"] for e in spans
+                if e["args"]["probe"]]
+    plain_ms = [e["args"]["device_wall_ms"] for e in spans
+                if not e["args"]["probe"]]
     rec.update(probe_dispatches=probed, decode_dispatches=decodes,
                quality=quality, trace_events=n_events,
                check_cli=cli.stdout.strip().splitlines(),

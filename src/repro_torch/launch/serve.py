@@ -39,12 +39,14 @@ activation probes every K decode forwards (integer path). Both files pass
 
 Every engine run ends with `served N requests...`, one `req i: prompt ->
 tokens` line per request and a one-line `summary:` from the engine's
-metrics registry (and a `quality:` line when probes ran).
+metrics registry and the requests' first-token stamps (and a `quality:`
+line when probes ran).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 
 import numpy as np
 import torch
@@ -67,9 +69,18 @@ def _ms(v) -> str:
     return "n/a" if v is None else f"{v * 1e3:.1f}ms"
 
 
-def summary_line(snap: dict) -> str:
-    """One-line end-of-run summary from a registry snapshot."""
+def _nearest_rank(values: list[float], q: float) -> float | None:
+    if not values:
+        return None
+    v = sorted(values)
+    return v[max(0, math.ceil(q / 100.0 * len(v)) - 1)]
+
+
+def summary_line(snap: dict, done=()) -> str:
+    """One-line end-of-run summary from a registry snapshot, with the time
+    to first token of the served requests `done`."""
     c, g, h = snap["counters"], snap["gauges"], snap["histograms"]
+    ttft = [r.t_first - r.t_submit for r in done if r.t_first is not None]
     toks = c["engine.generated_tokens"]
     wall = h["engine.step.wall_s"]["sum"]
     lat = h["engine.decode.token_latency_s"]
@@ -77,6 +88,8 @@ def summary_line(snap: dict) -> str:
     out = (f"summary: {toks} tokens in {wall:.2f}s engine time "
            f"({toks / max(wall, 1e-9):.1f} tok/s) | "
            f"token latency p50 {_ms(lat['p50'])} p95 {_ms(lat['p95'])} | "
+           f"TTFT p50 {_ms(_nearest_rank(ttft, 50))} "
+           f"p95 {_ms(_nearest_rank(ttft, 95))} | "
            f"peak pages {g['engine.pages.peak_in_use']:.0f}"
            f"/{g['engine.pages.capacity']:.0f} "
            f"({g['engine.pages.utilization_peak']:.0%} peak util)")
@@ -325,7 +338,7 @@ def main(argv=None):
 
     snap = engine.metrics_snapshot()
     validate_snapshot(snap)     # never write an off-schema artifact
-    print(summary_line(snap))
+    print(summary_line(snap, done))
     if probes is not None:
         imb = snap["histograms"]["quality.l1_imbalance_post"]
         print(f"quality: post-rotation l1 imbalance p50 {imb['p50']:.3f} "

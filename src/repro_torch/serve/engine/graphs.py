@@ -11,7 +11,9 @@ replays all of them for the price of one launch.
 `CapturedCall` is one variant of such a dispatch. It holds
 
 - static input buffers, which the caller fills (`copy_`) on every call -
-  a graph reads the addresses it was captured with;
+  a graph reads the addresses it was captured with; `load` fills them and
+  `run` dispatches, so a caller can time the two apart (`__call__` does
+  both);
 - the captured graph and its static outputs, the same tensors on every
   replay (read them before the next call);
 - the kernel-launch and dispatch-tally deltas of one call: the wrappers of
@@ -71,6 +73,11 @@ class CapturedCall:
         self.capture_s: float | None = None
 
     def __call__(self, **values: torch.Tensor):
+        self.load(**values)
+        return self.run()
+
+    def load(self, **values: torch.Tensor):
+        """Copy `values` into the static input buffers."""
         if values.keys() != self.inputs.keys():
             raise ValueError(f"inputs {sorted(values)}, captured with "
                              f"{sorted(self.inputs)}")
@@ -81,6 +88,10 @@ class CapturedCall:
                                  f"{tuple(values[name].shape)}, its buffer "
                                  f"{tuple(buf.shape)}")
             buf.copy_(values[name])
+
+    def run(self):
+        """Run the call on the loaded buffers: the first time eagerly, then
+        capture; later, replay."""
         if self.pool is None:
             return self.fn(**self.inputs)
         if self.graph is None:

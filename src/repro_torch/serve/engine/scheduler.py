@@ -95,9 +95,14 @@ one reference to it (`self.kv.state`).
 
 Telemetry: every counter lives in a `MetricsRegistry` whose snapshot carries
 the reference's whole taxonomy (`serve.telemetry.schema`). A `Tracer`
-records request lifecycles and each forward's wall time (ending in a device
-synchronise); `QualityProbes` runs the probe variant of every K-th decode
-forward. Both are off by default and change no token or logit.
+records request lifecycles and the phases of every step - admission, page
+growth, each dispatch's inputs, copies, launch, token transfer and commit,
+the accounting and the stream flush - and the decode dispatch's time on the
+device's clock from a pair of CUDA events, never a synchronise. An engine without a tracer of its
+own records the phases while a `torch.profiler` session is recording
+(`serve.telemetry.trace.profiler_session`). `QualityProbes` runs the probe
+variant of every K-th decode forward. All are off by default and change no
+token or logit; off, a step pays one profiler-flag read.
 """
 from __future__ import annotations
 
@@ -108,13 +113,14 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
 
 from ...kernels import ops as kops
 from ..telemetry.metrics import MetricsRegistry
 from ..telemetry.quality import QualityProbes
 from ..telemetry.schema import (REQUIRED_COUNTERS, REQUIRED_GAUGES,
                                 REQUIRED_HISTOGRAMS)
-from ..telemetry.trace import PID_REQUESTS, Tracer
+from ..telemetry.trace import PID_REQUESTS, Tracer, new_session
 from .adapter import ServableModel
 from .faults import DispatchFault, FaultPlan, SwapFault
 from .graphs import CapturedCall, pool_bytes
@@ -256,6 +262,8 @@ class EngineRequest:
     swap_retries: int = 0      # failed swap-in attempts since swap-out
     t_submit: float | None = None   # perf_counter at submit
     t_admit: float | None = None    # perf_counter at admission
+    t_first: float | None = None    # perf_counter at first token delivered
+    t_delivered: float | None = None   # perf_counter at last token delivered
 
     @property
     def done(self) -> bool:
@@ -385,6 +393,9 @@ class ServeEngine:
         # neutral
         self.metrics = MetricsRegistry()
         self.tracer = tracer
+        self._session: Tracer | None = None   # under a profiler session
+        self._device_events = self.device.type == "cuda"
+        self._timing: tuple | None = None    # the decode's CUDA event pair
         self.quality_probes = quality_probes
         if quality_probes is not None:
             if not getattr(adapter, "supports_quality_probes", False):
@@ -1157,7 +1168,22 @@ class ServeEngine:
         return lg, _pick_tokens(lg, temps, top_ks, top_ps, uniforms,
                                 samples=samples, filtered=filtered), stats
 
-    def _decode_once(self) -> list[EngineRequest]:
+    def _timing_events(self):
+        """The decode dispatch's pair of CUDA timing events, made once, the
+        first recorded on the current stream; None off the card. The pair
+        is read before the next decode dispatch."""
+        if not self._device_events:
+            return None
+        if self._timing is None:
+            self._timing = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+        self._timing[0].record()
+        return self._timing
+
+    def _decode_once(self, tr: Tracer | None,
+                     step: int) -> list[EngineRequest]:
+        if tr:
+            ts = tr.ts()
         batch = self.decoding
         b = self.max_seqs
         m = self.metrics
@@ -1193,22 +1219,37 @@ class ServeEngine:
             len(batch) / self.max_seqs)
         impl = functools.partial(self._decode_impl, samples=samples,
                                  filtered=filtered, probe=probe)
-        tr = self.tracer
-        ts0 = tr.ts() if tr else 0.0
-        if self.eager:
-            lg, picked, stats = impl(
-                **{k: v.to(self.device) for k, v in inputs.items()})
-        else:
-            lg, picked, stats = self._fused(
-                "decode", impl, (n_cols, probe, samples, filtered),
-                inputs)(**inputs)
         if tr:
-            self._sync()
-            tr.complete("dispatch.decode", ts0, tr.ts() - ts0,
-                        args={"rows": len(batch), "probe": probe})
+            ts = tr.phase("engine.decode.inputs", ts,
+                          {"step": step, "rows": len(batch),
+                           "n_cols": n_cols})
+        if self.eager:
+            run = functools.partial(
+                impl, **{k: v.to(self.device) for k, v in inputs.items()})
+        else:
+            call = self._fused("decode", impl,
+                               (n_cols, probe, samples, filtered), inputs)
+            call.load(**inputs)
+            run = call.run
+        if tr:
+            ts = tr.phase("engine.decode.copy", ts, {"step": step})
+            ev = self._timing_events()
+        lg, picked, stats = run()
+        if tr:
+            if ev:
+                ev[1].record()
+            now = tr.ts()
+            span = tr.complete("dispatch.decode", ts, now - ts,
+                               args={"step": step, "rows": len(batch),
+                                     "probe": probe})
+            ts = now
+        picked = picked.cpu().numpy()
+        if tr:
+            ts = tr.phase("engine.decode.wait", ts, {"step": step})
+            if ev:
+                span["args"]["device_wall_ms"] = ev[0].elapsed_time(ev[1])
         if stats is not None:
             self.quality_probes.record(stats)
-        picked = picked.cpu().numpy()
         toks, mx = picked[0].astype(np.int64), picked[1]
         finite = np.isfinite(mx)
         finished = []
@@ -1234,13 +1275,17 @@ class ServeEngine:
                 self.decoding.remove(req)
                 self._finish(req)
                 finished.append(req)
+        if tr:
+            tr.phase("engine.decode.commit", ts,
+                     {"step": step, "finished": len(finished)})
         return finished
 
     # ------------------------------------------------------------------
     # chunked prefill
     # ------------------------------------------------------------------
 
-    def _prefill_once(self, budget: int) -> tuple[int, list[EngineRequest]]:
+    def _prefill_once(self, budget: int, tr: Tracer | None,
+                      step: int) -> tuple[int, list[EngineRequest]]:
         """Advance the head-of-line prefill by up to `budget` tokens of its
         stream (the prompt, plus the tokens already generated when
         replaying a preempted request); returns (tokens consumed, requests
@@ -1251,6 +1296,8 @@ class ServeEngine:
         their outputs are meaningless and discarded); their in-page writes
         land on the scratch page or on not-yet-valid slots that are
         rewritten before the causal mask ever exposes them."""
+        if tr:
+            ts = tr.ts()
         req = self.prefilling[0]
         stream = self._stream(req)
         start = req.n_cached
@@ -1259,6 +1306,7 @@ class ServeEngine:
         real = min(self.prefill_chunk, budget, len(stream) - start)
         padded = _next_pow2(real)
         bt = None
+        n_cols = 0
         if self.spec.kv:
             while True:
                 try:
@@ -1286,19 +1334,22 @@ class ServeEngine:
         # state - whose update is a recurrence, not a masked read - and is
         # the sampled token's stream position
         lens = torch.tensor([start + real], dtype=torch.int32, device=dev)
-        tr = self.tracer
-        ts0 = tr.ts() if tr else 0.0
+        if tr:
+            ts = tr.phase("engine.prefill.inputs", ts,
+                          {"step": step, "rid": req.rid, "tokens": real,
+                           "padded": padded, "n_cols": n_cols})
         logits, self.kv.state = self.adapter.forward_chunk(
             self.adapter.params, tokens, self.kv.state, start, bt, lens, reg)
         if tr:
-            self._sync()
-            tr.complete("dispatch.prefill", ts0, tr.ts() - ts0,
-                        args={"rid": req.rid, "tokens": real,
-                              "padded": padded})
+            ts = tr.phase("dispatch.prefill", ts,
+                          {"step": step, "rid": req.rid, "tokens": real,
+                           "padded": padded})
         lg = logits[:, real - 1].to(torch.float32)
         # for a replay, position start + real is the one the undisturbed
         # decode sampled at, so the continuation draws the same uniform
         toks, mx = self._sample(lg, [req], [req.rid], [start + real])
+        if tr:
+            ts = tr.phase("engine.prefill.wait", ts, {"step": step})
         if not np.isfinite(mx[0]):
             # poisoned model output mid-prefill: the request cannot
             # continue - terminate it alone (the single-sequence dispatch
@@ -1308,6 +1359,8 @@ class ServeEngine:
                           f"(poisoned model output)")
             m.counter("engine.requests.poisoned").inc()
             self._terminate(req, "failed")
+            if tr:
+                tr.phase("engine.prefill.commit", ts, {"step": step})
             return real, []
 
         req.n_cached = start + real
@@ -1327,22 +1380,18 @@ class ServeEngine:
             if self.record_logits:
                 req.step_logits.append(lg[0].cpu().numpy())
             m.counter("engine.generated_tokens").inc()
-            if tr:
-                tr.end("prefill", pid=PID_REQUESTS, tid=req.rid)
-                tr.begin("decode", pid=PID_REQUESTS, tid=req.rid)
+            if self.tracer:
+                self.tracer.end("prefill", pid=PID_REQUESTS, tid=req.rid)
+                self.tracer.begin("decode", pid=PID_REQUESTS, tid=req.rid)
             self._check_stop(req)
             if req.done:
                 self._finish(req)
                 finished.append(req)
             else:
                 self.decoding.append(req)
+        if tr:
+            tr.phase("engine.prefill.commit", ts, {"step": step})
         return real, finished
-
-    def _sync(self):
-        """Wait for the device's queued work: a traced dispatch's wall time
-        then covers its device time."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     # driver
@@ -1351,36 +1400,56 @@ class ServeEngine:
     def step(self) -> list[EngineRequest]:
         """One engine iteration; returns every request that reached a
         terminal state during it (completed, cancelled, expired or failed -
-        check `req.outcome`)."""
+        check `req.outcome`).
+
+        With a tracer, or under a recording `torch.profiler` session, the
+        step and its phases are "X" spans on the engine track (see
+        `serve.telemetry.trace`); the phases follow one another, so each
+        phase's start is the previous one's end."""
         m = self.metrics
         t0 = time.perf_counter()
-        gen0 = m.counter("engine.generated_tokens").value
+        tr = self.tracer
+        if tr is None:
+            if _profiler_enabled():
+                tr = self._session = self._session or new_session()
+            else:
+                self._session = None
+        k = self._step_index
+        if tr:
+            ts = t_step = tr.ts()
         self._apply_faults()
         self._expire_deadlines()
         self._admit()
         self._check_stalled()
+        if tr:
+            ts = tr.phase("engine.admit", ts, {"step": k})
         finished = []
         budget = self.token_budget
         spent = 0
+        rows = 0
         if self.decoding:
             try:
                 self._maybe_dispatch_fault("decode")
                 self._grow_decode()
+                if tr:
+                    tr.phase("engine.grow", ts, {"step": k})
                 # growth may have preempted or swapped out a member of the
                 # batch: the decode reads the batch after it
                 if self.decoding:
-                    budget -= len(self.decoding)
-                    spent += len(self.decoding)
-                    finished.extend(self._decode_once())
+                    rows = len(self.decoding)
+                    budget -= rows
+                    spent += rows
+                    finished.extend(self._decode_once(tr, k))
             except DispatchFault:
                 m.counter("engine.dispatch.faults").inc()
         # `guard` bounds the zero-progress retries a preempted prefill head
         # can cause within one step (each retry strictly shrinks the active
         # set, so this terminates regardless)
         guard = len(self.prefilling) + 1
+        chunks = prefill_tokens = 0
         while budget > 0 and self.prefilling and guard > 0:
             try:
-                used, fin = self._prefill_once(budget)
+                used, fin = self._prefill_once(budget, tr, k)
             except DispatchFault:
                 m.counter("engine.dispatch.faults").inc()
                 break
@@ -1389,48 +1458,76 @@ class ServeEngine:
             finished.extend(fin)
             if used == 0:
                 guard -= 1
+            elif tr:
+                chunks += 1
+                prefill_tokens += used
+        if tr:
+            ts = tr.ts()
         self._step_index += 1
         m.counter("engine.steps").inc()
         # the transfer of the sampled tokens already forced the device to
         # finish, so the wall time is real
-        wall = time.perf_counter() - t0
-        m.histogram("engine.step.wall_s").observe(wall)
+        m.histogram("engine.step.wall_s").observe(time.perf_counter() - t0)
         m.histogram("engine.step.budget_utilization").observe(
             spent / self.token_budget)
-        lat = m.histogram("engine.decode.token_latency_s")
-        for _ in range(m.counter("engine.generated_tokens").value - gen0):
-            lat.observe(wall)
         self._update_gauges()
         finished.extend(self._terminal)
         self._terminal.clear()
-        self._flush_streams(finished)
+        if tr:
+            ts = tr.phase("engine.account", ts, {"step": k})
+        delivered = self._flush_streams(finished)
+        if tr:
+            end = tr.phase("engine.flush", ts,
+                           {"step": k, "tokens": delivered})
+            tr.complete("engine.step", t_step, end - t_step, args={
+                "step": k, "decode_rows": rows, "chunks": chunks,
+                "prefill_tokens": prefill_tokens})
         return finished
 
-    def _flush_streams(self, finished: list[EngineRequest]):
+    def _flush_streams(self, finished: list[EngineRequest]) -> int:
         """Step-boundary streaming: deliver every not-yet-streamed
-        generated token to its request's `on_token` callback, after all
-        device work and bookkeeping of the step. Terminal requests'
-        callbacks are dropped after their final flush. A raising callback
-        is counted (`engine.stream.callback_errors`) and dropped, so one
-        broken consumer never blocks delivery to the other streams."""
-        if not self._callbacks:
-            return
+        generated token, after all device work and bookkeeping of the step,
+        to its request's `on_token` callback where it has one. Terminal
+        requests' callbacks are dropped after their final flush. A raising
+        callback is counted (`engine.stream.callback_errors`) and dropped,
+        so one broken consumer never blocks delivery to the other streams.
+
+        Every delivered token is stamped: a request's first at `t_first`
+        (a `first_token` instant on its track when a tracer is attached),
+        each later one into `engine.decode.token_latency_s` as the gap
+        since the request's previous delivery. Returns the tokens
+        delivered."""
+        now = time.perf_counter()
+        lat = self.metrics.histogram("engine.decode.token_latency_s")
+        n = 0
         for req in self.active + finished:
-            cb = self._callbacks.get(req.rid)
-            if cb is None:
+            if req.n_streamed >= len(req.generated):
                 continue
+            cb = self._callbacks.get(req.rid)
             while req.n_streamed < len(req.generated):
                 tok = req.generated[req.n_streamed]
                 req.n_streamed += 1
+                n += 1
+                if req.t_first is None:
+                    req.t_first = now
+                    if self.tracer:
+                        self.tracer.instant("first_token", pid=PID_REQUESTS,
+                                            tid=req.rid)
+                else:
+                    lat.observe(now - req.t_delivered)
+                req.t_delivered = now
+                if cb is None:
+                    continue
                 try:
                     cb(req.rid, tok)
                 except Exception:
                     self.metrics.counter(
                         "engine.stream.callback_errors").inc()
                     self._callbacks.pop(req.rid, None)
-                    break
+                    cb = None
         for req in finished:
             self._callbacks.pop(req.rid, None)
+        return n
 
     def run(self) -> list[EngineRequest]:
         done = []

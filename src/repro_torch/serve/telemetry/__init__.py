@@ -30,15 +30,19 @@ either package's snapshot):
   ``engine.step.budget_utilization`` (tokens spent / token budget),
   ``engine.decode.batch_occupancy`` (decode rows / max_seqs, observed
   per decode dispatch), ``engine.decode.token_latency_s`` (each
-  generated token inherits its engine step's wall time),
+  delivered token after a request's first: the gap since the same
+  request's previous delivery; the first is stamped as the request's
+  ``t_first``),
   ``engine.admission.wait_s`` (submit → admission),
   ``engine.request.e2e_s`` (submit → finish),
   ``engine.prefill.chunk_tokens`` (real tokens per prefill dispatch).
 * ``kernels.dispatch.<entry>.<kernels|ref>`` — per-entry-point dispatch
   tallies mirrored from `repro_torch.kernels.ops` at snapshot time: one
   per call, tagged with the path it took (the CUDA kernel, or the plain
-  PyTorch version). Wall time of the serving dispatches lives in the
-  trace spans, where it can be measured honestly.
+  PyTorch version). The time of the serving dispatches lives in the
+  trace spans: the host's launch as a span's duration, and the decode
+  dispatch's launch and run on the device's clock, between two CUDA
+  events, as its ``device_wall_ms``.
 * ``quality.*`` — rotation-quality probes (int4 path, sampled every K
   decode dispatches): ``quality.<stat>`` pooled histograms and
   ``quality.layer<NN>.<stat>`` per-layer latest-value gauges for
@@ -50,7 +54,13 @@ either package's snapshot):
 Snapshots are versioned dicts (`MetricsRegistry.snapshot()`), mergeable
 across processes (`merge`: counters add, histogram buckets add) for the
 multi-host roll-up. Traces are Chrome Trace Event Format JSON that opens
-directly in Perfetto (`Tracer.save`). `python -m
+directly in Perfetto (`Tracer.save`): request lifecycles and each engine
+step's phases, with no device synchronise, on a clock anchored to the Unix
+epoch (`otherData.unix_ns_at_zero`, the clock of `torch.profiler`'s
+events). An engine with no tracer records its phases into a session
+tracer while a `torch.profiler` session records (`trace.profiler_session`);
+the spans are not `record_function` ranges, whose device-side twins the
+profile would count as device work. `python -m
 repro_torch.serve.telemetry.check` validates both artifact kinds.
 """
 from .metrics import (SCHEMA_VERSION, Counter, Gauge, Histogram,

@@ -9,6 +9,7 @@ kernel entry takes its plain version. Each tolerance is stated beside its
 assertion.
 """
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,7 @@ from repro_torch.serve.telemetry import (PID_ENGINE, PID_REQUESTS,
                                          validate_snapshot, validate_trace)
 from repro_torch.serve.telemetry import quality as tquality
 from repro_torch.serve.telemetry import schema as tschema
+from repro_torch.serve.telemetry.trace import profiler_session
 
 PROMPTS = [[3, 14, 15, 92, 6], [53, 58, 9], [7, 9, 3, 23, 84, 62]]
 MAX_NEW = 3
@@ -331,7 +333,8 @@ def served():
     return cfg, packed
 
 
-def _run(served, **kw):
+def _engine(served, max_new=MAX_NEW, **kw):
+    """An engine over the reduced model with PROMPTS submitted."""
     cfg, packed = served
     qlm = tq.QuantizedDenseLM(cfg, block_size=16, kv_bits=kw.pop("kv_bits", 4))
     kw.setdefault("n_pages", 33)
@@ -341,7 +344,12 @@ def _run(served, **kw):
     eng = ServeEngine(as_servable(qlm, packed), record_logits=True, **kw)
     for rid, p in enumerate(PROMPTS):
         eng.submit(EngineRequest(rid=rid, prompt=list(p),
-                                 sampling=SamplingParams(max_new=MAX_NEW)))
+                                 sampling=SamplingParams(max_new=max_new)))
+    return eng
+
+
+def _run(served, **kw):
+    eng = _engine(served, **kw)
     done = {r.rid: r for r in eng.run()}
     assert len(done) == len(PROMPTS)
     eng.check_books()
@@ -414,8 +422,9 @@ def test_engine_snapshot_and_trace_valid(served):
     assert eng.n_steps == c["engine.steps"] > 0
     h = snap["histograms"]
     assert h["engine.step.wall_s"]["count"] == c["engine.steps"]
+    assert all(r.t_first is not None for r in done.values())
     assert h["engine.decode.token_latency_s"]["count"] \
-        == c["engine.generated_tokens"]
+        == c["engine.generated_tokens"] - len(PROMPTS)
     evs = tr.to_dict()["traceEvents"]
     decodes = [e for e in evs if e["name"] == "dispatch.decode"]
     prefills = [e for e in evs if e["name"] == "dispatch.prefill"]
@@ -444,19 +453,175 @@ def test_engine_snapshot_and_trace_valid(served):
         assert ("i", "alloc_pages") in names
 
 
-@pytest.mark.parametrize("kv_bits", [None, 4])
-def test_tracing_and_probes_are_bit_path_neutral(served, kv_bits):
-    """Same tokens AND bit-identical recorded logits with a tracer and
-    probes every second decode dispatch."""
+@pytest.mark.parametrize("kv_bits,session", [
+    pytest.param(None, False, id="None"), pytest.param(4, False, id="4"),
+    pytest.param(None, True, id="None-session"),
+    pytest.param(4, True, id="4-session")])
+def test_tracing_and_probes_are_bit_path_neutral(served, kv_bits, session):
+    """Same tokens AND bit-identical recorded logits with probes every
+    second decode dispatch and a tracer, or no tracer under a recording
+    `torch.profiler` session, as with neither."""
     _, plain = _run(served, kv_bits=kv_bits)
-    eng, probed = _run(served, kv_bits=kv_bits, tracer=Tracer(),
-                       quality_probes=QualityProbes(every_k=2))
+    probes = QualityProbes(every_k=2)
+    if session:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            eng, probed = _run(served, kv_bits=kv_bits,
+                               quality_probes=probes)
+        assert any(e["name"] == "dispatch.decode"
+                   for e in profiler_session().events)
+    else:
+        eng, probed = _run(served, kv_bits=kv_bits, tracer=Tracer(),
+                           quality_probes=probes)
     assert eng.metrics.counter("quality.probe_dispatches").value > 0
     for rid in plain:
         assert probed[rid].generated == plain[rid].generated
         assert len(probed[rid].step_logits) == MAX_NEW
         for a, b in zip(probed[rid].step_logits, plain[rid].step_logits):
             assert np.array_equal(a, b)
+
+
+PHASES = ("engine.admit", "engine.grow", "engine.decode.inputs",
+          "engine.decode.copy", "dispatch.decode", "engine.decode.wait",
+          "engine.decode.commit",
+          "engine.prefill.inputs", "dispatch.prefill", "engine.prefill.wait",
+          "engine.prefill.commit", "engine.account", "engine.flush")
+
+
+class FakeTimingEvent:
+    """`torch.cuda.Event(enable_timing=True)` on the host clock, so the
+    card's timing path runs on the CPU."""
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        FakeTimingEvent.made += 1
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("the device was synchronised or timed")
+
+
+def test_phase_spans_nest_in_their_step(served, monkeypatch):
+    """A traced run: both validators accept the trace; every engine-track
+    span carries its step, lies inside that step's `engine.step` span, and
+    the phases of a step sum to no more than the step. With timing events
+    (here on the host clock) each decode dispatch carries
+    `device_wall_ms`, and nothing synchronises."""
+    monkeypatch.setattr(torch.cuda, "Event", FakeTimingEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", _refuse)
+    FakeTimingEvent.made = 0
+    tr = Tracer()
+    eng = _engine(served, tracer=tr)
+    eng._device_events = True            # as on a card
+    done = {r.rid: r for r in eng.run()}
+    obj = tr.to_dict()
+    both_validate_trace(obj)
+    assert obj["otherData"]["unix_ns_at_zero"] == tr.unix_ns_at_zero
+    assert abs(tr.unix_ns_at_zero - time.time_ns()) < 60e9
+    spans = [e for e in obj["traceEvents"]
+             if e["pid"] == PID_ENGINE and e["ph"] == "X"]
+    steps = {e["args"]["step"]: e for e in spans if e["name"] == "engine.step"}
+    assert sorted(steps) == list(range(eng.n_steps))
+    children = [e for e in spans if e["name"] != "engine.step"]
+    assert {e["name"] for e in children} == set(PHASES)
+    total = dict.fromkeys(steps, 0.0)
+    for e in children:
+        st = steps[e["args"]["step"]]
+        assert st["ts"] <= e["ts"] + 1e-6
+        assert e["ts"] + e["dur"] <= st["ts"] + st["dur"] + 1e-6
+        total[e["args"]["step"]] += e["dur"]
+    for k, st in steps.items():
+        assert total[k] <= st["dur"] + 1e-6
+        names = [e["name"] for e in children if e["args"]["step"] == k]
+        for once in ("engine.admit", "engine.account", "engine.flush"):
+            assert names.count(once) == 1
+        assert names.count("dispatch.prefill") == st["args"]["chunks"]
+        assert names.count("dispatch.decode") == (st["args"]["decode_rows"]
+                                                  > 0)
+    decodes = [e for e in children if e["name"] == "dispatch.decode"]
+    assert decodes and all(e["args"]["device_wall_ms"] >= 0 for e in decodes)
+    assert not [e for e in children if e["name"] == "dispatch.prefill"
+                and "device_wall_ms" in e["args"]]
+    assert FakeTimingEvent.made == 2      # one pair, made once
+    prefills = [e for e in children if e["name"] == "dispatch.prefill"]
+    assert sum(e["args"]["tokens"] for e in prefills) \
+        == sum(st["args"]["prefill_tokens"] for st in steps.values()) \
+        == sum(len(p) for p in PROMPTS)
+    assert sum(e["args"]["tokens"] for e in children
+               if e["name"] == "engine.flush") == len(PROMPTS) * MAX_NEW
+    # a first token a request, stamped at delivery
+    for rid, req in done.items():
+        firsts = [e for e in obj["traceEvents"] if e["pid"] == PID_REQUESTS
+                  and e["tid"] == rid and e["name"] == "first_token"]
+        assert len(firsts) == 1
+        assert req.t_submit < req.t_first <= req.t_delivered
+
+
+def test_session_spans_sit_on_the_profilers_clock(served):
+    """Under a CPU `torch.profiler` session an engine without a tracer
+    records its steps into the session's tracer; each `engine.step`,
+    placed by `unix_ns_at_zero`, covers the caller's `record_function`
+    range around the step within 1 ms at both ends. Request lifecycles
+    stay out of a session; outside one nothing is recorded, and the next
+    session starts a tracer of its own."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    eng = _engine(served, max_new=8)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        # a session's first range pays the profiler's start-up (~1 ms on
+        # the CPU) between its stamp and its body
+        with record_function("warm-up"):
+            pass
+        for i in range(3):
+            with record_function(f"pb.step.{i}"):
+                eng.step()
+    tr = profiler_session()
+    marks = {e.name(): (e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("pb.step.")}
+    steps = sorted((e for e in tr.events if e["name"] == "engine.step"),
+                   key=lambda e: e["ts"])
+    assert len(steps) == len(marks) == 3
+    for i, e in enumerate(steps):
+        a, b = marks[f"pb.step.{i}"]
+        s0 = tr.unix_ns_at_zero + e["ts"] * 1e3
+        s1 = s0 + e["dur"] * 1e3
+        assert abs(s0 - a) < 1e6 and abs(s1 - b) < 1e6, (i, s0 - a, s1 - b)
+    both_validate_trace(tr.to_dict())
+    assert not [e for e in tr.events
+                if e["pid"] == PID_REQUESTS and e["ph"] != "M"]
+    n = len(tr.events)
+    eng.step()
+    assert profiler_session() is tr and len(tr.events) == n
+    with profile(activities=[ProfilerActivity.CPU]):
+        eng.step()
+    second = profiler_session()
+    assert second is not tr
+    assert [e["args"]["step"] for e in second.events
+            if e["name"] == "engine.step"] == [4]
+    assert eng.queue or eng.active
+
+
+def test_untraced_steps_record_and_synchronise_nothing(served, monkeypatch):
+    """With no tracer and no profiler session a step makes no timing
+    event, calls no synchronise and records no span, even where the
+    engine would time its dispatches on a card."""
+    monkeypatch.setattr(torch.cuda, "Event", _refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", _refuse)
+    before = profiler_session()
+    n = len(before.events) if before is not None else 0
+    eng = _engine(served)
+    eng._device_events = True
+    assert len(eng.run()) == len(PROMPTS)
+    assert profiler_session() is before
+    assert before is None or len(before.events) == n
 
 
 def test_probes_rejected_without_the_capability(served):
@@ -520,6 +685,7 @@ def test_launcher_probes_and_traces(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "quality: post-rotation l1 imbalance p50" in out
     assert "probed dispatches)" in out and f"trace (" in out
+    assert "| TTFT p50 " in out and "TTFT p50 n/a" not in out
     plain = cli.main(LAUNCH)
     capsys.readouterr()
     assert [r.generated for r in observed["done"]] \
