@@ -204,7 +204,8 @@ def swap_io_bench(device: torch.device, *, smoke: bool, iters: int = 5):
     cache = PagedKVCache(kv, n_pages, page_size, n_slots=2)
     cache.attach_host_pool(64)
     rid = 0
-    cache.tables[rid] = cache.allocator.alloc(pages_move)
+    cache.open(rid)
+    cache.ensure(rid, pages_move * page_size)
 
     def copy_ms():
         if cache.last_transfer is None:

@@ -77,7 +77,9 @@ class CapturedCall:
         return self.run()
 
     def load(self, **values: torch.Tensor):
-        """Copy `values` into the static input buffers."""
+        """Copy `values` into the static input buffers, without waiting: a
+        caller that rewrites a (pinned) host value must first wait for the
+        copies queued here, as a later transfer on the stream does."""
         if values.keys() != self.inputs.keys():
             raise ValueError(f"inputs {sorted(values)}, captured with "
                              f"{sorted(self.inputs)}")
@@ -87,7 +89,7 @@ class CapturedCall:
                 raise ValueError(f"input {name!r} has shape "
                                  f"{tuple(values[name].shape)}, its buffer "
                                  f"{tuple(buf.shape)}")
-            buf.copy_(values[name])
+            buf.copy_(values[name], non_blocking=True)
 
     def run(self):
         """Run the call on the loaded buffers: the first time eagerly, then

@@ -65,12 +65,25 @@ events on one side stream:
 On the CPU the same steps run as plain copies. A failed copy raises.
 `_inflight` holds the device pages inside a transfer window; scrub and COW
 refuse them.
+
+**The table mirror** (`table_rows`). Beside the Python tables, which stay
+the source of truth, `PagedKVCache` keeps them as one int32 host array: a
+row per open sequence (row 0 all scratch, for padded batch rows), a column
+per table entry, unused entries scratch, a host-resident entry
+`HOST_PAGE`. Every change to a table goes through this class, which writes
+the list and the mirror row together, so the decode step gathers its
+`[rows, n_cols]` table in one indexed copy instead of rebuilding it from
+the lists. Both dimensions double when a table or the set of open tables
+outgrows them. `take_rows_written` counts the rows written since its last
+call. The mirror is plain host memory: the decode step copies from its own
+staging buffer, never from the mirror.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ...kernels import ops as kops
@@ -81,6 +94,7 @@ Params = dict[str, Any]
 
 SCRATCH_PAGE = 0
 SCRATCH_SLOT = 0
+HOST_PAGE = -1        # the table mirror's entry for a `HostPageRef`
 
 
 def pages_for(n_tokens: int, page_size: int) -> int:
@@ -250,8 +264,8 @@ def _done(event) -> bool:
 class HostPageRef:
     """Block-table entry for a host-resident page: names a slot of the
     `HostSwapPool` instead of a device page id. Kernels never see one -
-    `block_table_array` refuses a table holding any - so a sequence with
-    host-resident pages must swap in before dispatch."""
+    `block_table_array` and `table_rows` refuse a table holding any - so a
+    sequence with host-resident pages must swap in before dispatch."""
 
     __slots__ = ("slot",)
 
@@ -424,6 +438,16 @@ class PagedKVCache:
         self.registers = RegisterAllocator(n_slots) if self._reg_leaves \
             else None
         self.slots: dict[int, int] = {}          # rid -> register slot
+        # the table mirror (module docstring): rid -> row, the free rows
+        # (row 0 stays scratch), each row's entries and HOST_PAGE entries,
+        # the rows written since `take_rows_written`
+        rows = max(n_slots, 2)
+        self._mirror = np.full((rows, 16), SCRATCH_PAGE, np.int32)
+        self._row: dict[int, int] = {}
+        self._free_rows = list(range(rows - 1, 0, -1))
+        self._lens = [0] * rows
+        self._hosted = [0] * rows
+        self._written: set[int] = set()
         leaves = self._kv_leaves + self._reg_leaves
         self.device = leaves[0].device if leaves else torch.device("cpu")
         # bytes one page costs across every kv leaf (the swap cost unit)
@@ -469,14 +493,24 @@ class PagedKVCache:
             raise ValueError(f"sequence {rid} already open")
         if self.registers is not None:
             self.slots[rid] = self.registers.alloc()
+        if not self._free_rows:
+            self._grow_mirror(2 * len(self._mirror), 0)
+        self._row[rid] = self._free_rows.pop()
         self.tables[rid] = []
 
     def ensure(self, rid: int, n_tokens: int):
         """Grow `rid`'s block table to cover `n_tokens` positions."""
-        table = self.tables[rid]
-        need = pages_for(n_tokens, self.page_size) - len(table)
+        need = pages_for(n_tokens, self.page_size) - len(self.tables[rid])
         if need > 0:
-            table.extend(self.allocator.alloc(need))
+            self.extend(rid, self.allocator.alloc(need))
+
+    def extend(self, rid: int, pages: list[int]):
+        """Append device pages, whose references the caller holds, to
+        `rid`'s table: growth, or pages adopted from the radix tree."""
+        table = self.tables[rid]
+        start = len(table)
+        table.extend(pages)
+        self._write_row(rid, start)
 
     def release(self, rid: int, adopted: int = 0):
         """Return `rid`'s pages and register slot. The first `adopted`
@@ -487,6 +521,11 @@ class PagedKVCache:
         cancelled, expired or degraded to replay) return their slots to the
         swap tier once the copy into them has landed."""
         entries = self.tables.pop(rid)[adopted:]
+        row = self._row.pop(rid)
+        self._mirror[row, :self._lens[row]] = SCRATCH_PAGE
+        self._lens[row] = self._hosted[row] = 0
+        self._free_rows.append(row)
+        self._written.add(row)
         slot = self.slots.pop(rid, None)
         after = self._out_events.pop(rid, None)
         self.deref([p for p in entries if isinstance(p, int)], slot)
@@ -648,6 +687,7 @@ class PagedKVCache:
         self._inflight.difference_update(pages)
         for (i, _), s in zip(moved, slots):
             table[i] = HostPageRef(s)
+        self._write_row(rid)
         self.deref(pages)
         self.pages_swapped_out += len(pages)
         return len(pages), len(pages) * self.page_bytes
@@ -707,6 +747,7 @@ class PagedKVCache:
         self._inflight.difference_update(new_pages)
         for (i, _), p in zip(refs, new_pages):
             table[i] = p
+        self._write_row(rid)
         self._out_events.pop(rid, None)
         self.host_pool.release(slots, after=done)
         self.pages_swapped_in += len(refs)
@@ -774,6 +815,95 @@ class PagedKVCache:
         bt = [row + [SCRATCH_PAGE] * (n_cols - len(row)) for row in bt]
         return torch.tensor(bt, dtype=torch.int32,
                             device=self.device).reshape(len(rids), n_cols)
+
+    # ------------------------------------------------------------------
+    # the table mirror
+    # ------------------------------------------------------------------
+
+    def _grow_mirror(self, rows: int, cols: int):
+        """Widen the mirror to at least `rows` x `cols`; new rows are free
+        and new entries scratch."""
+        r, c = self._mirror.shape
+        grown = np.full((max(rows, r), max(cols, c)), SCRATCH_PAGE, np.int32)
+        grown[:r, :c] = self._mirror
+        self._mirror = grown
+        if len(grown) > r:
+            self._lens += [0] * (len(grown) - r)
+            self._hosted += [0] * (len(grown) - r)
+            self._free_rows.extend(range(len(grown) - 1, r - 1, -1))
+
+    def _write_row(self, rid: int, start: int = 0):
+        """Mirror `rid`'s table from entry `start` on. From 0 (swap-out and
+        swap-in rewrite entries in place) the host-resident entries are
+        counted again; a later start appends device pages only."""
+        table = self.tables[rid]
+        row, n = self._row[rid], len(table)
+        if n > self._mirror.shape[1]:
+            self._grow_mirror(0, 1 << (n - 1).bit_length())
+        if start == 0:
+            entries = [HOST_PAGE if isinstance(e, HostPageRef) else e
+                       for e in table]
+            self._hosted[row] = entries.count(HOST_PAGE)
+        else:
+            entries = table[start:]
+        self._mirror[row, start:n] = entries
+        self._lens[row] = n
+        self._written.add(row)
+
+    def take_rows_written(self) -> int:
+        """How many mirror rows were written since the last call."""
+        n = len(self._written)
+        self._written.clear()
+        return n
+
+    def table_rows(self, rids: list[int | None], n_cols: int,
+                   out: np.ndarray | None = None) -> np.ndarray:
+        """`block_table_array(rids, n_cols)`'s values as a host int32 array,
+        gathered from the mirror in one indexed copy (into `out` when
+        given): the decode step's table. It refuses what
+        `block_table_array` refuses, from the per-row counts, without
+        reading the rows."""
+        idx = [self._row[r] if r is not None else 0 for r in rids]
+        for r, i in zip(rids, idx):
+            if self._lens[i] > n_cols:
+                raise ValueError(
+                    f"block table for sequence {r} holds {self._lens[i]} "
+                    f"pages but only {n_cols} columns were requested")
+            if self._hosted[i]:
+                raise ValueError(
+                    f"sequence {r} has host-resident pages; it must swap "
+                    f"in before any kernel dispatch")
+        if n_cols > self._mirror.shape[1]:
+            self._grow_mirror(0, n_cols)
+        # the rows are the mirror's own: "clip" only skips the bounds
+        # check and the buffered copy it takes
+        return np.take(self._mirror[:, :n_cols], idx, axis=0, out=out,
+                       mode="clip")
+
+    def check_mirror(self):
+        """Assert that the mirror holds every open table as
+        `block_table_array` builds it (host-resident entries as
+        `HOST_PAGE`), and that row 0 and the free rows are scratch."""
+        assert set(self._row) == set(self.tables), (self._row, self.tables)
+        rows = list(self._row.values()) + self._free_rows
+        assert sorted(rows) == list(range(1, len(self._mirror))), rows
+        cols = self._mirror.shape[1]
+        for rid, table in self.tables.items():
+            row = self._row[rid]
+            want = [HOST_PAGE if isinstance(e, HostPageRef) else e
+                    for e in table]
+            assert self._lens[row] == len(want), (rid, self._lens[row])
+            assert self._hosted[row] == want.count(HOST_PAGE), rid
+            assert self._mirror[row].tolist() \
+                == want + [SCRATCH_PAGE] * (cols - len(want)), rid
+            if HOST_PAGE not in want:
+                n_cols = max(len(want), 1)
+                assert np.array_equal(
+                    self.table_rows([rid], n_cols),
+                    self.block_table_array([rid], n_cols).cpu().numpy()), rid
+        free = [0] + self._free_rows
+        assert not self._mirror[free].any(), free
+        assert not any(self._lens[i] or self._hosted[i] for i in free), free
 
     def register_index_array(self, rids: list[int | None]) -> torch.Tensor:
         """[len(rids)] int32 register slot per batch row, on the state's

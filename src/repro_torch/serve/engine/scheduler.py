@@ -37,8 +37,11 @@ Scheduling model (one `step()` = one engine iteration):
      variant's first step and replayed at every later one, its inputs
      copied into static buffers first (the block table among them, so a
      replay walks whatever rows preemption, COW and swap-in wrote) and its
-     tokens read back in one transfer. No pool write (scrub, COW, swap)
-     runs inside a capture: they all happen between dispatches.
+     tokens read back in one transfer. The inputs persist on the host
+     between steps: the table is gathered from `PagedKVCache`'s mirror,
+     which every table change updates, into a pinned buffer, and reaches
+     the static buffers by non_blocking copies. No pool write (scrub, COW,
+     swap) runs inside a capture: they all happen between dispatches.
   4. **Chunked prefill** - the rest of the per-step token budget goes to
      the head-of-line stream, `prefill_chunk` tokens at a time, chunks
      padded to the next power of two. A *replay* (preempted request)
@@ -389,6 +392,22 @@ class ServeEngine:
         self.eager = eager
         self._graphs: dict[tuple, CapturedCall] = {}
         self._graph_pool = None
+        # the decode step's inputs on the host, rewritten in place every
+        # step (`_decode_once`), pinned beside a card so that they reach
+        # the static buffers by non_blocking copies; the table's buffer
+        # grows with its widest `[max_seqs, n_cols]`
+        self._pin = self.device.type == "cuda"
+        self._stage = {
+            "tokens": torch.zeros((max_seqs, 1), dtype=torch.int64,
+                                  pin_memory=self._pin),
+            "fill": torch.zeros(max_seqs, dtype=torch.int32,
+                                pin_memory=self._pin),
+            "lens": torch.zeros(max_seqs, dtype=torch.int32,
+                                pin_memory=self._pin)}
+        self._stage_np = tuple(self._stage[k].numpy()
+                               for k in ("tokens", "fill", "lens"))
+        self._stage_bt = torch.zeros(0, dtype=torch.int32)
+        self._bt_views: dict[int, tuple[torch.Tensor, np.ndarray]] = {}
         # telemetry: tracer and quality probes are opt-in and bit-path-
         # neutral
         self.metrics = MetricsRegistry()
@@ -600,12 +619,11 @@ class ServeEngine:
                 if hit == 0:
                     m.counter("engine.prefix.misses").inc()
                     return
-        table = self.kv.tables[req.rid]
-        table.extend(shared)
+        self.kv.extend(req.rid, shared)
         if src is not None:
             self.kv.cow_copy(src, dst)
             self.kv.deref([src])          # unpin; our copy carries on
-            table.append(dst)
+            self.kv.extend(req.rid, [dst])
             m.counter("engine.prefix.cow_copies").inc()
         req.n_cached = hit
         m.counter("engine.prefix.hits").inc()
@@ -952,7 +970,8 @@ class ServeEngine:
         commitment is its device-resident entries; no page is inside a
         transfer; host slots in use equal the host-resident entries; each
         page's refcount equals its multiplicity over the tables and the
-        radix tree; free + in-use pages cover the capacity exactly.
+        radix tree; free + in-use pages cover the capacity exactly; the
+        table mirror holds every table (`PagedKVCache.check_mirror`).
         Waits for the swap tier's copies in flight first."""
         self.kv.settle()
         assert self._committed_total == sum(self._committed.values()), \
@@ -1002,6 +1021,7 @@ class ServeEngine:
                 (self.kv.slots, set(self.kv.tables))
             assert len(set(self.kv.slots.values())) == len(self.kv.slots), \
                 self.kv.slots
+        self.kv.check_mirror()
 
     def _ensure(self, rid: int, n_tokens: int):
         """`kv.ensure` plus the growth-commit update, the fault-injection
@@ -1180,39 +1200,58 @@ class ServeEngine:
         self._timing[0].record()
         return self._timing
 
+    def _table_stage(self, n_cols: int) -> tuple[torch.Tensor, np.ndarray]:
+        """The decode table's host buffer at width `n_cols`: a `[max_seqs,
+        n_cols]` view of one flat buffer (pinned beside a card), as a
+        tensor and as a numpy array, made once a width."""
+        view = self._bt_views.get(n_cols)
+        if view is None:
+            size = self.max_seqs * n_cols
+            if self._stage_bt.numel() < size:
+                self._stage_bt = torch.empty(size, dtype=torch.int32,
+                                             pin_memory=self._pin)
+                self._bt_views.clear()
+            t = self._stage_bt[:size].view(self.max_seqs, n_cols)
+            view = self._bt_views[n_cols] = (t, t.numpy())
+        return view
+
     def _decode_once(self, tr: Tracer | None,
                      step: int) -> list[EngineRequest]:
         if tr:
             ts = tr.ts()
         batch = self.decoding
-        b = self.max_seqs
+        n, b = len(batch), self.max_seqs
         m = self.metrics
-        pad = b - len(batch)
+        pad = b - n
         rids = [r.rid for r in batch] + [None] * pad
-        new_lens = [r.n_cached + 1 for r in batch]
-        inputs = {
-            "tokens": torch.tensor([[r.next_token] for r in batch]
-                                   + [[0]] * pad, dtype=torch.int64),
-            "fill": torch.tensor([r.n_cached for r in batch] + [0] * pad,
-                                 dtype=torch.int32),
-            "lens": torch.tensor(new_lens + [0] * pad, dtype=torch.int32),
-        }
+        # The host inputs persist between steps and are rewritten here in
+        # place. That is safe: the previous step's copies out of them were
+        # queued on this stream before its token transfer (`picked.cpu()`),
+        # which has returned.
+        inputs = dict(self._stage)
+        tokens, fill, lens = self._stage_np
+        cached = [r.n_cached for r in batch]
+        tokens[:n, 0] = [r.next_token for r in batch]
+        fill[:n] = cached
+        lens[:n] = fill[:n] + 1
+        tokens[n:] = fill[n:] = lens[n:] = 0
         n_cols = 0
         if self.spec.kv:
-            n_cols = _next_pow2(max(
-                pages_for(n, self.kv.page_size) for n in new_lens))
-            m.counter("engine.pages_walked").inc(
-                sum(pages_for(n, self.kv.page_size) for n in new_lens))
+            pages = [pages_for(c + 1, self.kv.page_size) for c in cached]
+            n_cols = _next_pow2(max(pages))
+            m.counter("engine.pages_walked").inc(sum(pages))
             m.counter("engine.pages_walked_dense").inc(b * n_cols)
-            inputs["bt"] = self.kv.block_table_array(rids, n_cols)
+            bt, bt_np = self._table_stage(n_cols)
+            self.kv.table_rows(rids, n_cols, out=bt_np)
+            inputs["bt"] = bt
+        written = self.kv.take_rows_written()
         if self.spec.register:
             inputs["reg"] = self.kv.register_index_array(rids)
         samples = any(r.sampling.temperature > 0 for r in batch)
         filtered = samples and self._wants_filtering(batch)
         if samples:
             inputs.update(self._sampling_operands(
-                batch, [r.rid for r in batch] + [0] * pad,
-                new_lens + [0] * pad))
+                batch, [r.rid for r in batch] + [0] * pad, lens.tolist()))
         probe = (self.quality_probes is not None
                  and self.quality_probes.should_probe())
         m.histogram("engine.decode.batch_occupancy").observe(
@@ -1221,8 +1260,8 @@ class ServeEngine:
                                  filtered=filtered, probe=probe)
         if tr:
             ts = tr.phase("engine.decode.inputs", ts,
-                          {"step": step, "rows": len(batch),
-                           "n_cols": n_cols})
+                          {"step": step, "rows": n, "n_cols": n_cols,
+                           "table_rows_written": written})
         if self.eager:
             run = functools.partial(
                 impl, **{k: v.to(self.device) for k, v in inputs.items()})

@@ -19,8 +19,9 @@ from repro_torch.serve.engine import (SCRATCH_PAGE, SCRATCH_SLOT,
                                       ServeEngine, as_servable,
                                       derive_state_spec, pages_for)
 from repro_torch.serve.engine import scheduler as sched
+from repro_torch.serve.engine.pages import HOST_PAGE
 from repro_torch.serve.quantized import QuantizedDenseLM, pack_dense_params
-from repro_torch.serve.telemetry import QualityProbes
+from repro_torch.serve.telemetry import QualityProbes, Tracer
 
 # logits bound of the model tests: 5e-3 of max|logit| (rounding ties of the
 # activation quantiser between two summation orders)
@@ -483,6 +484,122 @@ def test_fused_decode_matches_the_direct_path(served, kv_bits):
     assert not direct._graphs
     assert fused.graph_stats() == {"graphs": 0, "capture_s": 0,
                                    "pool_bytes": 0}     # nothing captured
+
+
+# -------------------- the decode step's table mirror --------------------
+
+def _tables_from_lists(self, rids, n_cols, out=None):
+    """`PagedKVCache.table_rows` as the decode step built its table before
+    the mirror: `block_table_array` over the Python lists."""
+    bt = self.block_table_array(rids, n_cols).cpu().numpy()
+    if out is None:
+        return bt
+    out[:] = bt
+    return out
+
+
+@pytest.mark.parametrize("eager", [False, True])
+def test_mirror_tables_serve_bit_identically(served, monkeypatch, eager):
+    """Decode tables gathered from the mirror against tables built from
+    the lists through `block_table_array`: over changing occupancy, table
+    widths, probed and sampled steps, the tokens, every step's logits and
+    both tallies are bit-equal."""
+    _, got, got_counts = _serve_mixed(served, 4, eager=eager)
+    monkeypatch.setattr(PagedKVCache, "table_rows", _tables_from_lists)
+    _, want, want_counts = _serve_mixed(served, 4, eager=eager)
+    assert sorted(got) == sorted(want) == list(range(5))
+    for rid in want:
+        assert got[rid].generated == want[rid].generated
+        assert len(got[rid].step_logits) == len(want[rid].step_logits)
+        for g, w in zip(got[rid].step_logits, want[rid].step_logits):
+            assert np.array_equal(g, w)
+    assert got_counts == want_counts
+
+
+def test_host_resident_sequence_is_refused_at_dispatch(served):
+    """A decoding sequence whose pages were swapped out, and not back in,
+    is refused at the decode step's dispatch, as `block_table_array`
+    refuses it: the mirror keeps its entries as `HOST_PAGE` and a count of
+    them, so the refusal reads no row."""
+    _, engine = make_engine(served, page_size=4, n_pages=16,
+                            swap_host_mb=8)
+    engine.submit(EngineRequest(rid=0, prompt=[5, 6, 7, 8, 9],
+                                sampling=SamplingParams(max_new=8)))
+    while not engine.decoding:
+        engine.step()
+    kv = engine.kv
+    assert kv.swap_out(0)[0] == 2
+    engine.kv.check_mirror()
+    assert kv._mirror[kv._row[0], :2].tolist() == [HOST_PAGE] * 2
+    with pytest.raises(ValueError, match="host-resident"):
+        kv.block_table_array([0], 4)
+    with pytest.raises(ValueError, match="must swap in before any kernel "
+                                         "dispatch"):
+        engine.step()
+    kv.swap_in(0)
+    kv.check_mirror()
+    assert kv.table_rows([0], 4).tolist() == \
+        kv.block_table_array([0], 4).tolist()
+
+
+def test_released_mirror_row_is_scratch_when_reused():
+    """A released sequence's mirror row is all scratch when the next
+    sequence takes it; rows and columns grow as sequences open and tables
+    widen, and the mirror stays equal to the lists."""
+    kv = PagedKVCache(_pool(n_pages=40), 40, 4)
+    kv.open(1)
+    kv.ensure(1, 20)                                 # 5 pages
+    row = kv._row[1]
+    kv.release(1)
+    kv.open(2)
+    assert kv._row[2] == row
+    assert kv.table_rows([2], 8).tolist() == [[SCRATCH_PAGE] * 8]
+    kv.ensure(2, 3)
+    assert kv.table_rows([2, None], 8).tolist() == \
+        [kv.tables[2] + [SCRATCH_PAGE] * 7, [SCRATCH_PAGE] * 8]
+    for rid in range(3, 8):                          # more rows than made
+        kv.open(rid)
+        kv.ensure(rid, 4)
+    kv.ensure(2, 4 * 20)                             # more columns
+    kv.check_mirror()
+    assert kv.table_rows([2], 32).tolist() == \
+        kv.block_table_array([2], 32).tolist()
+    with pytest.raises(ValueError, match="only 16 columns"):
+        kv.table_rows([2, 3], 16)                    # never truncated
+    for rid in range(2, 8):
+        kv.release(rid)
+    kv.check_mirror()
+    assert not kv._mirror.any()
+
+
+def test_table_rows_written_counts_page_crossings(served):
+    """`engine.decode.inputs` carries `table_rows_written`: the first decode
+    step reads rows that prefill wrote, at most `max_seqs`; after it, with
+    no admission or finish between, exactly the rows whose growth crossed
+    into a new page."""
+    cfg, _ = served
+    tr = Tracer()
+    _, engine = make_engine(served, page_size=4, n_pages=25, max_seqs=4,
+                            prefill_chunk=32, tracer=tr)
+    rng = np.random.default_rng(3)
+    for rid, n in enumerate((3, 5, 6, 8)):
+        engine.submit(EngineRequest(
+            rid=rid, prompt=rng.integers(0, cfg.vocab, n).tolist(),
+            sampling=SamplingParams(max_new=12)))
+    crossings = {}
+    while engine.queue or engine.active:
+        crossings[engine.n_steps] = sum(
+            r.n_cached % 4 == 0 for r in engine.decoding)
+        engine.step()
+        engine.check_books()
+    written = {e["args"]["step"]: e["args"]["table_rows_written"]
+               for e in tr.to_dict()["traceEvents"]
+               if e["name"] == "engine.decode.inputs"}
+    first = min(written)
+    assert first == 1 and written[first] == 4 <= engine.max_seqs
+    later = {k: written[k] for k in written if k > first}
+    assert len(later) == 10 and sum(later.values()) > 0
+    assert later == {k: crossings[k] for k in later}
 
 
 @pytest.mark.parametrize("change", ["n_cols", "probe", "samples", "filtered",

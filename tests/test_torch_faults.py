@@ -21,6 +21,7 @@ same invariants:
 The baseline and the faulted runs share the engine geometry, so every
 dispatch has the same shapes.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -30,8 +31,8 @@ from repro_torch.core.synthetic import inject_outlier_channels
 from repro_torch.models.transformer import build_model
 from repro_torch.serve.engine import (DispatchFault, EngineRequest,
                                       EngineStalledError, FaultPlan,
-                                      SamplingParams, ServeEngine, SwapFault,
-                                      as_servable)
+                                      HostPageRef, SamplingParams,
+                                      ServeEngine, SwapFault, as_servable)
 from repro_torch.serve.quantized import QuantizedDenseLM, pack_dense_params
 
 pytestmark = pytest.mark.chaos
@@ -260,6 +261,88 @@ def test_random_chaos_interleavings(served, baseline, seed):
     for rid, req in done.items():
         if req.outcome == "length":
             assert req.generated == baseline[rid], (seed, rid)
+
+
+# every path that rewrites a block table: (engine arguments, prompts, the
+# counters that show the path ran)
+SYS = [11, 23, 5, 81, 42, 17, 3, 64, 29, 90, 7, 55]     # 3 pages of 4
+MIRROR_CASES = {
+    "injected_exhaustion": (
+        dict(GEOM, max_preemptions=10,
+             faults=FaultPlan(seed=0, exhaust_rate=0.4)),
+        PROMPTS, ("engine.preemptions",)),
+    "genuine_exhaustion": (
+        dict(GEOM, n_pages=5, max_preemptions=10), PROMPTS,
+        ("engine.preemptions", "engine.replayed_prefill_tokens")),
+    "cancel_and_deadlines": (
+        dict(GEOM, faults=FaultPlan(seed=0, cancel_rate=0.25,
+                                    expire_rate=0.15)),
+        PROMPTS, ("engine.requests.cancelled", "engine.requests.expired")),
+    "chaos": (
+        dict(GEOM, max_preemptions=10,
+             faults=FaultPlan(seed=4, exhaust_rate=0.3, cancel_rate=0.25,
+                              expire_rate=0.15, dispatch_fail_rate=0.1)),
+        PROMPTS, ("engine.preemptions", "engine.dispatch.faults",
+                  "engine.requests.cancelled", "engine.requests.expired")),
+    "swap": (
+        dict(GEOM, n_pages=5, max_preemptions=10, swap_host_mb=8,
+             swap_policy="always"),
+        PROMPTS, ("engine.swap.out", "engine.swap.in")),
+    "swap_faults": (
+        dict(GEOM, max_preemptions=10, swap_host_mb=8, swap_policy="always",
+             faults=FaultPlan(seed=4, exhaust_rate=0.3, swap_fail_rate=0.3,
+                              cancel_rate=0.2)),
+        PROMPTS, ("engine.swap.out", "engine.swap.in",
+                  "engine.swap.fallbacks")),
+    "prefix_cow": (
+        dict(GEOM, n_pages=40, prefix_cache=True),
+        [SYS + [101, 7, 33], SYS + [88, 12, 60, 4], SYS + [19, 2], SYS[:8]],
+        ("engine.prefix.hits", "engine.prefix.cow_copies")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MIRROR_CASES))
+def test_decode_tables_match_block_table_array(served, case):
+    """The table mirror against its oracle through every path that
+    rewrites a table - preemption and replay, cancels, deadlines, swap-out
+    and swap-in, radix adoption and copy-on-write: at every decode step
+    the gathered table equals `block_table_array` for the same rows and
+    width, and after every step each open sequence's mirror row does (a
+    swapped-out one is refused by both)."""
+    kw, prompts, counters = MIRROR_CASES[case]
+    eng = engine(served, **kw)
+    kv = eng.kv
+    gather = kv.table_rows
+    dispatched = []
+
+    def checked(rids, n_cols, out=None):
+        got = gather(rids, n_cols, out)
+        assert np.array_equal(got, kv.block_table_array(rids, n_cols))
+        dispatched.append(n_cols)
+        return got
+
+    kv.table_rows = checked
+    for rid, p in enumerate(prompts):
+        eng.submit(EngineRequest(rid=rid, prompt=list(p),
+                                 sampling=SamplingParams(max_new=MAX_NEW)))
+    while eng.queue or eng.active:
+        eng.step()
+        eng.check_books()
+        for rid, table in kv.tables.items():
+            n_cols = 1 << max(len(table) - 1, 0).bit_length()
+            if any(isinstance(e, HostPageRef) for e in table):
+                for build in (gather, kv.block_table_array):
+                    with pytest.raises(ValueError, match="host-resident"):
+                        build([rid], n_cols)
+            else:
+                assert np.array_equal(gather([rid], n_cols),
+                                      kv.block_table_array([rid], n_cols))
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.clear()
+    _assert_drained(eng)
+    assert dispatched
+    for name in counters:
+        assert _counter(eng, name) >= 1, name
 
 
 def test_identical_plans_replay_identical_faults(served):

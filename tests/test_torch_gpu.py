@@ -27,8 +27,10 @@ from repro_torch.kernels import int4_matmul as I4
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models.transformer import build_model
-from repro_torch.serve.engine import (EngineRequest, SamplingParams,
-                                      ServeEngine, as_servable)
+from repro_torch.serve.engine import (EngineRequest, PagedKVCache,
+                                      SamplingParams, ServeEngine,
+                                      as_servable)
+from repro_torch.serve.engine.graphs import CapturedCall
 from repro_torch.serve.quantized import QuantizedDenseLM, pack_dense_params
 from repro_torch.serve.telemetry import QualityProbes
 
@@ -716,6 +718,47 @@ def test_graphed_decode_bit_equal_to_eager(served_gpu):
     assert {key[2][0] for key in graphed._graphs} >= {1, 4, 8}   # n_cols
     assert stats["pool_bytes"] > 0 and stats["capture_s"] > 0
     assert not eager._graphs
+
+
+def _tables_from_lists(self, rids, n_cols, out=None):
+    """`PagedKVCache.table_rows` as the decode step built its table before
+    the mirror: `block_table_array` over the Python lists."""
+    bt = self.block_table_array(rids, n_cols).cpu().numpy()
+    if out is None:
+        return bt
+    out[:] = bt
+    return out
+
+
+def test_graphed_decode_from_the_mirror_bit_equal_to_list_tables(
+        served_gpu, monkeypatch):
+    """Graphed decode steps fed from the pinned staging buffers (the
+    mirror's tables, non_blocking copies) against the same engine fed
+    tables built from the lists: tokens, logits and tallies bit-equal."""
+    _, got, got_counts = _serve_graphed(served_gpu, eager=False)
+    monkeypatch.setattr(PagedKVCache, "table_rows", _tables_from_lists)
+    _, want, want_counts = _serve_graphed(served_gpu, eager=False)
+    _assert_same_service(got, want)
+    assert got_counts == want_counts
+
+
+def test_load_from_pinned_host_values(dev):
+    """`CapturedCall.load` from a pinned host view, as the decode step
+    passes its table: once a transfer behind the copy returns, the buffer
+    holds the values given and the host view may be rewritten for the
+    next call; a wrong shape is refused."""
+    call = CapturedCall(lambda bt: bt * 2,
+                        {"bt": torch.zeros(64, 512, dtype=torch.int32)}, dev)
+    flat = torch.empty(64 * 512 + 64, dtype=torch.int32, pin_memory=True)
+    bt = flat[:64 * 512].view(64, 512)
+    base = np.arange(64 * 512, dtype=np.int32).reshape(64, 512)
+    for k in range(3):
+        bt.numpy()[:] = base + k
+        call.load(bt=bt)
+        out = call.run().cpu()
+        assert np.array_equal(out.numpy(), 2 * (base + k))
+    with pytest.raises(ValueError, match="shape"):
+        call.load(bt=bt[:32])
 
 
 def test_graphed_decode_keeps_its_scratch(served_gpu, monkeypatch):

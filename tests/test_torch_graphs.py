@@ -9,6 +9,7 @@ what is returned, how the tallies move, that errors raise. Replays on the
 card are held against eager calls in `tests/test_torch_gpu.py`."""
 import contextlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -89,6 +90,36 @@ def test_direct_call_uses_the_static_buffers():
         call(a=torch.randn(1, 3), b=b)             # would broadcast
     with pytest.raises(ValueError, match="inputs"):
         call(a=a)
+
+
+@pytest.mark.parametrize("source", ["plain", "staged_view"])
+def test_load_fills_the_buffers_from_host_values(source):
+    """`load` copies host values into the static buffers, whether a plain
+    tensor or, as the decode step passes its table, a 2-D view of a
+    larger flat host buffer that numpy wrote; the buffers hold the values
+    given, not the caller's memory, and a wrong shape is still refused."""
+    call = CapturedCall(lambda bt, n: bt.sum() + n.sum(),
+                        {"bt": torch.zeros(3, 4, dtype=torch.int32),
+                         "n": torch.zeros(3, dtype=torch.int32)},
+                        torch.device("cpu"))
+    want = np.arange(12, dtype=np.int32).reshape(3, 4)
+    if source == "plain":
+        bt = torch.from_numpy(want.copy())
+    else:
+        flat = torch.full((20,), -1, dtype=torch.int32)
+        bt = flat[:12].view(3, 4)
+        bt.numpy()[:] = want
+    n = torch.tensor([1, 2, 3], dtype=torch.int32)
+    call.load(bt=bt, n=n)
+    assert call.inputs["bt"].tolist() == want.tolist()
+    assert call.inputs["n"].tolist() == [1, 2, 3]
+    bt.numpy()[:] = 0                          # the caller rewrites its own
+    assert call.inputs["bt"].tolist() == want.tolist()
+    assert int(call.run()) == int(want.sum()) + 6
+    with pytest.raises(ValueError, match="shape"):
+        call.load(bt=bt[:2], n=n)
+    with pytest.raises(ValueError, match="inputs"):
+        call.load(bt=bt)
 
 
 class _FakeGraph:
