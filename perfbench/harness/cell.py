@@ -1,14 +1,13 @@
 """One run of one cell: set the program up, warm it, drive the closed loop
 through the window, read the trace, check what was served.
 
-The program under test is `repro_torch`'s W4A4 serving path as its launcher
-builds it (`launch/serve.py --integer-path --preset rtn_only`):
-`core.pipeline.quantize_model` (round to nearest, block size from the
-configuration), `serve.quantized.pack_dense_params`, `QuantizedDenseLM`
-with int4 KV pages, `serve.engine.as_servable` and a `ServeEngine` whose
-pool holds every slot's worst case. The harness drives `ServeEngine.step()`
-and receives every token through `submit(..., on_token=)`, stamped on its
-own clock at the step boundary that delivers it.
+The program under test is `repro_torch`'s servable model as the
+configuration's family builds it (`perfbench/families/<family>.py`:
+weights drawn from the seed, the program's own quantisation and packing,
+`serve.engine.as_servable`), served by a `ServeEngine` whose pool holds
+every slot's worst case. The harness drives `ServeEngine.step()` and
+receives every token through `submit(..., on_token=)`, stamped on its own
+clock at the step boundary that delivers it.
 """
 from __future__ import annotations
 
@@ -21,11 +20,9 @@ import time
 import numpy as np
 import torch
 
-from . import check as ck
-from . import counts
+from . import counts, spec
 from . import trace as tr
 from .traffic import ClosedLoop, Traffic
-from .weights import calibration_tokens, draw, model_dims
 
 WARM_RID = 1 << 40        # warm-up requests' ids: clear of the clients'
 
@@ -47,45 +44,18 @@ class StepRecord:
         return "prefill" if self.chunks else "decode"
 
 
-def arch_config(cfg: dict):
-    """The program's `ArchConfig` of a configuration file: the registry's
-    entry with every size the file gives."""
-    from repro_torch.configs.registry import get_config
-    m = model_dims(cfg)
-    return dataclasses.replace(
-        get_config(cfg["arch_id"]), n_layers=m["n_layers"],
-        d_model=m["d_model"], vocab=m["vocab"], n_heads=m["n_heads"],
-        n_kv_heads=m["n_kv_heads"], head_dim=m["head_dim"], d_ff=m["d_ff"],
-        qkv_bias=m["qkv_bias"], rope_theta=m["rope_theta"],
-        param_dtype=m["param_dtype"],
-        compute_dtype=m["compute_dtype"]).validate()
-
-
 class Runner:
     """The program under test and the clients that load it."""
 
-    def __init__(self, cfg: dict, traffic: Traffic, seed: int, device):
-        from repro_torch.core import pipeline as PL
-        from repro_torch.models.transformer import build_model
-        from repro_torch.serve.engine import (ServeEngine, as_servable,
-                                              pages_for)
-        from repro_torch.serve.quantized import (QuantizedDenseLM,
-                                                 pack_dense_params)
-        self.dims = model_dims(cfg)
+    def __init__(self, cfg: dict, traffic: Traffic, seed: int, device,
+                 family):
+        from repro_torch.serve.engine import ServeEngine, pages_for
+        self.family = family
+        self.dims = family.dims(cfg)
         self.traffic = traffic
         self.on_card = torch.device(device).type == "cuda"
-        acfg = arch_config(cfg)
-        params = draw(cfg, seed, device)
-        res = PL.quantize_model(
-            build_model(acfg), params,
-            [{"tokens": calibration_tokens(cfg, seed).to(device)}],
-            PL.preset(cfg["quantization"]["preset"],
-                      block_size=self.dims["block_size"]))
-        del params
-        qlm = QuantizedDenseLM(acfg, block_size=self.dims["block_size"],
-                               kv_bits=self.dims["kv_bits"])
-        adapter = as_servable(qlm, pack_dense_params(res.params, acfg))
-        del res
+        adapter = family.build(cfg, self.dims,
+                               family.draw(cfg, seed, device), seed, device)
         page = traffic.page_size
         per_seq = pages_for(traffic.max_total, page)
         self.engine = ServeEngine(
@@ -210,13 +180,16 @@ class Runner:
                 recs.append(self.step(f"{tr.STEP_PREFIX}{i}"))
             if self.on_card:
                 torch.cuda.synchronize()
-        summary = tr.reduce_profile(holder["prof"], [r.kind for r in recs])
+        groups = {**tr.HAND_WRITTEN, **getattr(self.family, "KERNELS", {})}
+        summary = tr.reduce_profile(holder["prof"], [r.kind for r in recs],
+                                    groups)
         return recs, summary
 
 
 @dataclasses.dataclass
 class Context:
     """What the metric readers read."""
+    family: object
     dims: dict
     traffic: Traffic
     setup_s: float
@@ -279,31 +252,6 @@ def pick_sample(rn: Runner, n: int, seed: int) -> list[int]:
     return [live[0].rid] + [rest[i].rid for i in sorted(extra)]
 
 
-def cached_rows(rn: Runner, rid: int, n_layers: int) -> dict:
-    """What the program's pool holds for request `rid`: its token stream,
-    its prompt's length and, for each of the first `n_layers` layers, K
-    and V read back (scale * (code + offset + zero), K before RoPE), as
-    copies."""
-    eng = rn.engine
-    req = rn.reqs[rid]
-    n = req.n_cached
-    kv = eng.kv.state["kv"]
-    pages = torch.tensor(eng.kv.tables[rid], dtype=torch.int64,
-                         device=kv["k"].device)
-    off = float(2 ** (rn.dims["kv_bits"] - 1))
-
-    def rows(leaf, l):
-        t = kv[leaf][l][pages]
-        return t.reshape(-1, *t.shape[2:])[:n].to(torch.float32)
-
-    return {"tokens": (list(req.prompt) + list(req.generated))[:n],
-            "prompt_len": len(req.prompt),
-            "layers": [tuple(rows(f"{x}_scale", l)
-                             * (rows(x, l) + off + rows(f"{x}_zero", l))
-                             for x in ("k", "v"))
-                       for l in range(n_layers)]}
-
-
 def run_cell(cfg: dict, traffic: Traffic, *, seed: int, seconds: float,
              trace: bool, device, t_start: float, limits: dict,
              control: bool = False) -> dict:
@@ -315,7 +263,8 @@ def run_cell(cfg: dict, traffic: Traffic, *, seed: int, seconds: float,
     torch.backends.cudnn.allow_tf32 = False
     try:
         log(t_start, "set-up starts")
-        rn = Runner(cfg, traffic, seed, device)
+        fam = spec.family(cfg)
+        rn = Runner(cfg, traffic, seed, device, fam)
         log(t_start, "program built (weights, PTQ, packing, engine)")
         rn.warm_up(seed)
         log(t_start, f"warmed up ({rn.engine.graph_stats()['graphs']} "
@@ -329,7 +278,7 @@ def run_cell(cfg: dict, traffic: Traffic, *, seed: int, seconds: float,
         log(t_start, f"window closed: {len(recs)} steps; pool pages in use "
                      f"{pool.in_use}, at most {pool.peak_in_use} in the "
                      f"window, of {pool.capacity}")
-        ctx = Context(rn.dims, traffic, setup_s, recs, t0, t1,
+        ctx = Context(fam, rn.dims, traffic, setup_s, recs, t0, t1,
                       rn.t_submit, rn.stamps)
         if trace:
             ctx.trace_records, ctx.trace = rn.traced(traffic.trace_steps)
@@ -338,7 +287,8 @@ def run_cell(cfg: dict, traffic: Traffic, *, seed: int, seconds: float,
         if on_card:
             torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() if on_card else 0
-        held = [cached_rows(rn, rid, limits.layers_held(rn.dims["n_layers"]))
+        held = [fam.held(rn.engine, rn.reqs[rid],
+                         limits.layers_held(rn.dims["n_layers"]))
                 for rid in pick_sample(rn, traffic.sample_requests, seed)]
         short = sum(1 for rid, t in rn.t_done.items() if rid in rn.meta
                     and t >= t0 and rn.reqs[rid].outcome == "length"
@@ -354,11 +304,11 @@ def run_cell(cfg: dict, traffic: Traffic, *, seed: int, seconds: float,
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
-        check = ck.numbers(cfg, seed, device, held, limits) if held \
+        check = fam.numbers(cfg, seed, device, held, limits) if held \
             else {**{k: math.inf for k in limits.limit_of()}, "positions": 0}
         if control and held:
-            check["control"] = ck.numbers(cfg, seed, device, held, limits,
-                                          control=True)
+            check["control"] = fam.numbers(cfg, seed, device, held, limits,
+                                           control=True)
         n_held = len(held)
         del held
         log(t_start, f"checked {n_held} requests")

@@ -1,18 +1,19 @@
 """The yardstick: the card's peaks and the work of a step, counted from the
-model's shapes and the step's rows and contexts, never from launches.
+model's shapes and the step's rows and contexts, never from launches. A
+family (`perfbench/families/<family>.py::step_work`) says which of these a
+step of its model does, in which layers.
 
 Peaks are NVIDIA's H100 SXM data sheet (dense, no sparsity), at the 700 W
 power limit: HBM 3.35 TB/s, int8 1979 TOP/s, bf16 989 TFLOP/s.
 
-What is counted, per layer:
+What is counted, per layer that has it:
 
   * projections (int4 x int4, held against the int8 peak): 2 M K N
     operations; bytes: the int4 weight codes (K N / 2) and their f32
     per-column scales, the int4 activation codes of each distinct input
-    (q, k and v share one, gate and up another) with their f32 scale and
-    zero, and the outputs in the compute dtype (bf16). Q, K and V are one
-    item, gate and up another, `wo` and `w_down` one each; all the rows of
-    a step (decode rows and prefill chunks) read each weight once.
+    with their f32 scale and zero, and the outputs in the compute dtype
+    (bf16). Projections that read one input are one item (K, N); all the
+    rows of a step (decode rows and prefill chunks) read each weight once.
   * attention (held against the bf16 peak): 4 H Dh per query and visible
     key (QK^T and PV; masked keys and padded queries do not count); bytes:
     the visible KV rows each read once, as the configuration stores them
@@ -40,42 +41,32 @@ def _bound(ops: float, nbytes: float, peak: float) -> float:
     return max(ops / peak, nbytes / HBM_BYTES_PER_S)
 
 
-def projection_items(dims: dict) -> list[tuple[int, int]]:
-    """(K, N) of each projection item of one layer."""
-    d, f = dims["d_model"], dims["d_ff"]
-    h, kv, dh = dims["n_heads"], dims["n_kv_heads"], dims["head_dim"]
-    return [(d, (h + 2 * kv) * dh),        # q, k, v: one input
-            (h * dh, d),                   # wo
-            (d, 2 * f),                    # gate, up: one input
-            (f, d)]                        # w_down
-
-
-def projection_work(dims: dict, rows: int) -> tuple[float, float, float]:
-    """(ops, bytes, bound seconds) of every projection of every layer for
-    `rows` token rows."""
+def projection_work(items: list[tuple[int, int]], rows: int,
+                    layers: int) -> tuple[float, float, float]:
+    """(ops, bytes, bound seconds) of projection items (K, N), each in each
+    of `layers` layers, for `rows` token rows."""
     ops = nbytes = bound = 0.0
-    for k, n in projection_items(dims):
+    for k, n in items:
         o = 2.0 * rows * k * n
         b = k * n / 2 + 4 * n + rows * (k / 2 + 8) + rows * n * ACT_BYTES
         ops += o
         nbytes += b
         bound += _bound(o, b, INT8_OPS_PER_S)
-    layers = dims["n_layers"]
     return ops * layers, nbytes * layers, bound * layers
 
 
-def attention_work(dims: dict, start: int, rows: int) -> tuple[float, float,
-                                                               float]:
-    """(ops, bytes, bound seconds) of every layer's attention for `rows`
-    queries at positions start .. start + rows - 1 of one sequence (a
-    decode row: rows = 1, start = context - 1)."""
+def attention_work(dims: dict, start: int, rows: int,
+                   layers: int) -> tuple[float, float, float]:
+    """(ops, bytes, bound seconds) of the attention of `layers` layers for
+    `rows` queries at positions start .. start + rows - 1 of one sequence
+    (a decode row: rows = 1, start = context - 1); `dims` gives
+    `n_heads`, `n_kv_heads` and `head_dim`."""
     h, kv, dh = dims["n_heads"], dims["n_kv_heads"], dims["head_dim"]
     keys = rows * start + rows * (rows + 1) // 2     # visible (query, key)
     ctx = start + rows
     ops = 4.0 * h * dh * keys
     kv_bytes = 2 * ctx * kv * (dh * KV_CODE_BYTES + KV_AUX_BYTES)
     nbytes = kv_bytes + 2 * rows * h * dh * ACT_BYTES
-    layers = dims["n_layers"]
     return (ops * layers, nbytes * layers,
             _bound(ops, nbytes, BF16_FLOPS_PER_S) * layers)
 
@@ -85,30 +76,6 @@ def head_work(dims: dict, rows: int) -> tuple[float, float, float]:
     nbytes = dims["d_model"] * dims["vocab"] * ACT_BYTES \
         + rows * (dims["d_model"] + dims["vocab"]) * ACT_BYTES
     return ops, nbytes, _bound(ops, nbytes, BF16_FLOPS_PER_S)
-
-
-def step_work(dims: dict, step) -> dict:
-    """Work of one engine step (a `StepRecord`): per class (ops, bytes,
-    bound seconds), and the ideal seconds of each class at its peak."""
-    decode = step.decode_ctx
-    chunks = step.chunks
-    rows = len(decode) + sum(r for _, r, _ in chunks)
-    # the step's rows need every weight once, however they are batched
-    proj = list(projection_work(dims, rows)) if rows else [0.0] * 3
-    attn = [0.0, 0.0, 0.0]
-    for c in decode:
-        for i, v in enumerate(attention_work(dims, c - 1, 1)):
-            attn[i] += v
-    for s, r, _ in chunks:
-        for i, v in enumerate(attention_work(dims, s, r)):
-            attn[i] += v
-    used = len(decode) + sum(1 for _, _, last in chunks if last)
-    head = list(head_work(dims, used)) if used else [0.0] * 3
-    return {
-        "proj": proj, "attn": attn, "head": head,
-        "ideal_s": proj[0] / INT8_OPS_PER_S
-        + (attn[0] + head[0]) / BF16_FLOPS_PER_S,
-    }
 
 
 def next_pow2(n: int) -> int:

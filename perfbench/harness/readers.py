@@ -35,7 +35,7 @@ def chunk_fill(ctx):
 
 
 def _traced_work(ctx):
-    return [counts.step_work(ctx.dims, r) for r in ctx.trace_records]
+    return [ctx.family.step_work(ctx.dims, r) for r in ctx.trace_records]
 
 
 def kernel_roofline(ctx, group: str, work_class: str):

@@ -2,6 +2,9 @@
 
 A cell (`workloads` entry) names a configuration (`configs` entry, whose
 `file` is read) and a traffic mix (`perfbench/traffic/<traffic>.json`).
+A configuration names its model family, `perfbench/families/<family>.py`:
+the module that draws its weights, builds the program, reads back its
+state, computes the check's numbers and counts a step's work.
 Every metric is read by its own reader, `perfbench/metrics/<name>.py`,
 whose `read(ctx)` returns the number or None where there is nothing to
 read (the metric is then left out of the result line). A cell's limit of
@@ -17,6 +20,7 @@ from .traffic import Traffic
 
 PERFBENCH = Path(__file__).resolve().parent.parent
 ROOT = PERFBENCH.parent
+FAMILIES = PERFBENCH / "families"
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
@@ -52,14 +56,29 @@ def metrics_for(bench: dict, cell: str, per_layer: bool) -> list[dict]:
     return [m for m in group if cell in m.get("workloads", [cell])]
 
 
-def reader(name: str):
-    """The `read` function of metric `name`."""
-    path = PERFBENCH / "metrics" / f"{name}.py"
+def _load(package: str, name: str, path: Path):
     spec = importlib.util.spec_from_file_location(
-        "perfbench.metrics." + name.replace(".", "_"), path)
+        f"perfbench.{package}." + name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str):
+    """The `read` function of metric `name`."""
+    return _load("metrics", name, PERFBENCH / "metrics" / f"{name}.py").read
+
+
+def family(cfg: dict):
+    """The module of the configuration's model family
+    (`perfbench/families/<family>.py`)."""
+    name = cfg.get("family")
+    path = FAMILIES / f"{name}.py"
+    if not isinstance(name, str) or not path.is_file():
+        raise KeyError(f"configuration {cfg.get('name')!r} names the model "
+                       f"family {name!r}, which has no module {path.name} "
+                       "under perfbench/families")
+    return _load("families", name, path)
 
 
 def limits(cell: str):

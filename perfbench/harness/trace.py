@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import contextlib
 
-# the hand-written kernels of the program, by their device symbol names
+# the hand-written kernels of the program, by their device symbol names; a
+# family adds the groups of its own kernels (`KERNELS` of its module)
 HAND_WRITTEN = {
     "int4_matmul": ("i4_mma_kernel",),
     "paged_attention": ("paged_attention_kernel",),
@@ -22,8 +23,8 @@ HAND_WRITTEN = {
 STEP_PREFIX = "pb.step."
 
 
-def group_of(name: str) -> str | None:
-    for group, syms in HAND_WRITTEN.items():
+def group_of(name: str, groups: dict = HAND_WRITTEN) -> str | None:
+    for group, syms in groups.items():
         if any(s in name for s in syms):
             return group
     return None
@@ -51,10 +52,11 @@ def _union(intervals):
     return out
 
 
-def reduce_profile(prof, kinds: list[str]) -> dict:
-    """Busy seconds, kernel seconds by group and by name, the window and
-    the longest idle gaps, from a profile whose i-th step span had kind
-    `kinds[i]`."""
+def reduce_profile(prof, kinds: list[str],
+                   groups: dict = HAND_WRITTEN) -> dict:
+    """Busy seconds, kernel seconds by group (`groups`: device symbol names
+    by group) and by name, the window and the longest idle gaps, from a
+    profile whose i-th step span had kind `kinds[i]`."""
     from torch.autograd import DeviceType
     device, spans = [], {}
     # the profiler's own records, in ns; its parsed event tree is not built
@@ -72,14 +74,14 @@ def reduce_profile(prof, kinds: list[str]) -> dict:
     steps = [spans[i] for i in sorted(spans)]
     w0, w1 = steps[0][0], steps[-1][1]
     by_name: dict[str, float] = {}
-    by_group = {g: 0.0 for g in HAND_WRITTEN}
+    by_group = {g: 0.0 for g in groups}
     inside = []
     for name, s, e in device:
         s, e = max(s, w0), min(e, w1)
         if e <= s:
             continue
         inside.append((s, e))
-        g = group_of(name)
+        g = group_of(name, groups)
         if g is not None:
             by_group[g] += (e - s) * 1e-6
         else:

@@ -81,6 +81,7 @@ def main(argv=None):
         bench = spec.load_benchmark()
         cell = spec.workload(bench, args.workload)
         cfg = spec.config(bench, cell["config"])
+        spec.family(cfg)
         traffic = spec.traffic(cell["traffic"])
         limits = spec.limits(cell["name"])
     except (OSError, KeyError, ValueError) as e:

@@ -4,14 +4,17 @@ import pytest
 
 from perfbench.harness import counts, spec
 from perfbench.harness.cell import StepRecord
-from perfbench.harness.weights import model_dims
 
 BENCH = spec.load_benchmark()
 CONFIGS = [c["name"] for c in BENCH["configs"]]
 
 
+def _family(name):
+    return spec.family(spec.config(BENCH, name))
+
+
 def _dims(name):
-    return model_dims(spec.config(BENCH, name))
+    return _family(name).dims(spec.config(BENCH, name))
 
 
 def _params(m):
@@ -24,7 +27,7 @@ def _params(m):
 def test_decode_step(name):
     m = _dims(name)
     ctx = [100, 2000, 6000]
-    w = counts.step_work(m, StepRecord(0, 1, ctx, []))
+    w = _family(name).step_work(m, StepRecord(0, 1, ctx, []))
     n = m["n_layers"]
     # projections: 2 ops per weight per row; int4 weights read once
     assert w["proj"][0] == 2 * 3 * _params(m) * n
@@ -45,7 +48,8 @@ def test_decode_step(name):
 def test_prefill_chunk(name):
     m = _dims(name)
     start, real = 1024, 1000
-    w = counts.step_work(m, StepRecord(0, 1, [], [(start, real, True)]))
+    step_work = _family(name).step_work
+    w = step_work(m, StepRecord(0, 1, [], [(start, real, True)]))
     n = m["n_layers"]
     assert w["proj"][0] == 2 * real * _params(m) * n
     # causal: query i sees start + i + 1 keys; padding does not count
@@ -53,7 +57,7 @@ def test_prefill_chunk(name):
     assert w["attn"][0] == 4 * m["n_heads"] * m["head_dim"] * keys * n
     assert w["head"][0] == 2 * m["d_model"] * m["vocab"]   # last row only
     # a chunk that does not complete its prompt needs no logits
-    w2 = counts.step_work(m, StepRecord(0, 1, [], [(0, real, False)]))
+    w2 = step_work(m, StepRecord(0, 1, [], [(0, real, False)]))
     assert w2["head"][0] == 0
     assert w["ideal_s"] == pytest.approx(
         w["proj"][0] / counts.INT8_OPS_PER_S

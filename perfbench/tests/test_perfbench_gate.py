@@ -25,15 +25,27 @@ def small_config(dtype: str) -> dict:
     return cfg
 
 
+def small_granite() -> dict:
+    """granite-3-2b's configuration (its four multipliers, its eps) at a
+    tiny size."""
+    cfg = spec.config(BENCH, "granite-3-2b-w4a4")
+    cfg.update(hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+               num_attention_heads=4, num_key_value_heads=2, head_dim=32,
+               vocab_size=512, torch_dtype="float32")
+    return cfg
+
+
 TRAFFIC = Traffic.from_dict(dict(
     clients=4, prompt_tokens=[5, 40], output_tokens=[6, 14], page_size=16,
     prefill_chunk=32, settle_steps=2, sample_requests=3, trace_steps=2))
 
 
-def run(dtype="float32", seed=2**33 + 5, control=False):
-    return run_cell(small_config(dtype), TRAFFIC, seed=seed, seconds=1.0,
-                    trace=False, device="cpu", t_start=time.perf_counter(),
-                    limits=spec.limits(CELL), control=control)
+def run(dtype="float32", seed=2**33 + 5, control=False, cfg=None,
+        cell=CELL):
+    return run_cell(cfg or small_config(dtype), TRAFFIC, seed=seed,
+                    seconds=1.0, trace=False, device="cpu",
+                    t_start=time.perf_counter(), limits=spec.limits(cell),
+                    control=control)
 
 
 def numbers(out):
@@ -108,6 +120,31 @@ def _token_altered(monkeypatch):
 def test_broken_path_is_not_correct(fault, caught_by, monkeypatch):
     fault(monkeypatch)
     out = run()
+    assert not out["correct"], out["checks"]
+    assert out["checks"][caught_by]["value"] \
+        > out["checks"][caught_by]["limit"], out["checks"]
+
+
+GRANITE_CELL = "granite-3-2b.prefill"
+
+
+def test_granite_limits_pass():
+    out = run(cfg=small_granite(), cell=GRANITE_CELL)
+    assert out["correct"], out["checks"]
+    assert set(numbers(out)) == {"kv_mismatch.layer0", "kv_far.layer1"}
+    assert max(numbers(out).values()) <= 1e-3
+
+
+@pytest.mark.parametrize("fault, caught_by", [
+    (_kv_writes_dropped, "kv_mismatch.layer0"),
+    (_half_the_batch, "kv_mismatch.layer0"),
+    (_attention_left_out, "kv_far.layer1")],
+    ids=["state_unchanged", "half_the_batch", "attention_wrong"])
+def test_broken_path_fails_granite_limits(fault, caught_by, monkeypatch):
+    """Granite's cell compares no head (`PERF.md` section 2): a token
+    altered where it is picked is the one fault it cannot see."""
+    fault(monkeypatch)
+    out = run(cfg=small_granite(), cell=GRANITE_CELL)
     assert not out["correct"], out["checks"]
     assert out["checks"][caught_by]["value"] \
         > out["checks"][caught_by]["limit"], out["checks"]

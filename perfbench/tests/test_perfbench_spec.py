@@ -6,7 +6,6 @@ import re
 import pytest
 
 from perfbench.harness import spec
-from perfbench.harness.weights import model_dims
 
 BENCH = spec.load_benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -30,7 +29,7 @@ def test_config_loads(c):
     assert cfg["reduced"] == c["reduced"]
     for k in c["reduced"]:
         assert not k.endswith(("_dim", "_rank", "_size")), k
-    m = model_dims(cfg)
+    m = spec.family(cfg).dims(cfg)
     assert m["d_model"] == m["n_heads"] * m["head_dim"]
     assert any(w["config"] == c["name"] for w in BENCH["workloads"])
 
